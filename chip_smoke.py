@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``ray_tpu_torch``) on one NVIDIA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It
+
+1. prints the card's name and power limit (nvidia-smi) and checks that its
+   compute capability is at least 9.0;
+2. builds the CUDA kernels from ``ray_tpu_torch/csrc`` and prints the
+   build time;
+3. holds each kernel against its plain PyTorch version at the serving
+   path's shapes, in bf16 and f32, and times kernel, plain version, one
+   PyTorch library call for the same function (SDPA over the gathered
+   dense K/V, a yardstick the port never calls) and the card's bound;
+4. serves 8 requests on GPT-2 125M at full width (bf16, seeded random
+   weights) through ``LLMEngine`` and checks every stream, the pool and
+   that both kernels' launch counts equal 12 layers x the engine's calls;
+5. on the same weights runs one prefill plus decode steps with the CUDA
+   kernels and with the plain backend and compares the logits;
+6. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+
+Any failure raises, so the exit code is not 0. Without a CUDA card, or
+outside a checkout, it exits 2 and prints no result. ``--quick`` stops
+after one comparison per kernel (a first check of a new kernel);
+``--profile`` adds a profiled warm pass of the engine's requests (device
+time by kernel, device idle share, step times).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12              # H100 SXM (NVIDIA data sheet)
+PEAK_OPS = {"bfloat16": 989e12,        # dense bf16 tensor cores
+            "float32": 67e12}          # f32 outside the tensor cores
+# |kernel - plain| <= atol + rtol * |plain| on the same inputs: f32 differs
+# only by the online vs one-shot softmax order; bf16 adds the kernel's bf16
+# rounding of exp2 and of the probabilities and one output rounding, so
+# bf16 allows two ulps (2 * 2^-7 relative) of the value plus 1e-2
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1.6e-2)}
+# max |logits(cuda kernels) - logits(plain backend)| on the bf16 model:
+# bf16 attention outputs differ by a few ulps per layer over 12 layers
+LOGIT_TOL = 0.1
+
+DECODE = dict(B=8, H=12, hd=64, bs=16, num_blocks=1024, max_len=1024)
+PREFILL = dict(B=4, S=512, H=12, hd=64, bs=16, num_blocks=1024, max_len=1024)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def compare(label: str, got, want, dtype_name: str) -> float:
+    """Max |got - want|; raises when any element is outside the tolerance."""
+    atol, rtol = TOL[dtype_name]
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    log(f"{label} {dtype_name}: max_abs_err {err:.3e} "
+        f"(tol {atol} + {rtol} * |plain|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} {dtype_name} disagrees with its plain "
+                             f"version: max_abs_err {err}")
+    return err
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- timing
+
+class Timer:
+    """Median device time of one call, L2 flushed before each call (the
+    serving path finds each layer's K/V cold: 12 layers of pool outgrow
+    the 50 MB L2)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def __call__(self, fn, iters: int = 20) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+# ------------------------------------------------------------- kernel inputs
+
+def make_pool(torch, gen, dtype, num_blocks, bs, H, hd):
+    k = torch.randn(num_blocks, bs, H, hd, generator=gen, device="cuda")
+    v = torch.randn(num_blocks, bs, H, hd, generator=gen, device="cuda")
+    return k.to(dtype), v.to(dtype)
+
+
+def make_tables(torch, gen, B, NB, used):
+    """[B, NB] int32 tables: row b holds used[b] distinct shuffled blocks
+    from 1.., the rest padded with block 0."""
+    perm = torch.randperm(B * NB, generator=gen, device="cuda") + 1
+    tables = torch.zeros(B, NB, dtype=torch.int32, device="cuda")
+    for b in range(B):
+        tables[b, : used[b]] = perm[b * NB: b * NB + used[b]].to(torch.int32)
+    return tables
+
+
+def decode_case(torch, dtype):
+    c = DECODE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, H, hd, bs = c["B"], c["H"], c["hd"], c["bs"]
+    NB = c["max_len"] // bs
+    # mixed lengths up to the model's 1024
+    lengths = [1024, 900, 700, 512, 333, 200, 64, 30]
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                       device="cuda")
+    tables = make_tables(torch, gen, B, NB, [-(-n // bs) for n in lengths])
+    k, v = make_pool(torch, gen, dtype, c["num_blocks"], bs, H, hd)
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+    return dict(q=q, k=k, v=v, tables=tables, pos=pos, lengths=lengths)
+
+
+def prefill_case(torch, dtype, starts):
+    c = PREFILL
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, S, H, hd, bs = c["B"], c["S"], c["H"], c["hd"], c["bs"]
+    NB = c["max_len"] // bs
+    st = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    pos = (st[:, None] + torch.arange(S, device="cuda", dtype=torch.int32))
+    tables = make_tables(torch, gen, B, NB,
+                         [-(-(s + S) // bs) for s in starts])
+    k, v = make_pool(torch, gen, dtype, c["num_blocks"], bs, H, hd)
+    q = torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
+    return dict(q=q, k=k, v=v, tables=tables, pos=pos.contiguous(),
+                starts=starts)
+
+
+def decode_bound(x, dtype_name, esize):
+    B, H, hd = x["q"].shape
+    tokens = sum(x["lengths"])
+    nbytes = (tokens * H * hd * 2 * esize + 2 * B * H * hd * esize
+              + x["tables"].numel() * 4 + B * 4)
+    ops = 4 * hd * H * tokens
+    return bound(nbytes, ops, dtype_name)
+
+
+def prefill_bound(x, dtype_name, esize):
+    B, S, H, hd = x["q"].shape
+    pairs = sum((s + i + 1) for s in x["starts"] for i in range(S)) * H
+    ctx = sum(s + S for s in x["starts"])
+    nbytes = (ctx * H * hd * 2 * esize + 2 * B * S * H * hd * esize
+              + x["tables"].numel() * 4 + B * S * 4)
+    ops = 4 * hd * pairs
+    return bound(nbytes, ops, dtype_name)
+
+
+def bound(nbytes, ops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dense_sdpa_inputs(torch, q4, k, v, tables, pos):
+    """q [B, S, H, hd] -> SDPA inputs over the gathered dense context,
+    mask t <= pos; gathered once here, outside the timed call."""
+    from ray_tpu_torch.ops.kv_cache import gather_kv
+
+    keys, values = gather_kv(k, v, tables)           # [B, T, H, hd]
+    T = keys.shape[1]
+    mask = (torch.arange(T, device="cuda")[None, None, :]
+            <= pos.long()[:, :, None])[:, None]      # [B, 1, S, T]
+    return (q4.transpose(1, 2).contiguous(), keys.transpose(1, 2).contiguous(),
+            values.transpose(1, 2).contiguous(), mask)
+
+
+def kernels_phase(torch, quick: bool) -> dict:
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import (
+        paged_attention,
+        paged_prefill_attention,
+    )
+
+    timer = None if quick else Timer(torch)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        esize = torch.empty(0, dtype=dtype).element_size()
+
+        x = decode_case(torch, dtype)
+        args = (x["q"], x["k"], x["v"], x["tables"], x["pos"])
+        got = pa.paged_attention_cuda(*args)
+        torch.cuda.synchronize()
+        err = compare("paged_decode", got, paged_attention(*args), name)
+        row = {"max_abs_err": err}
+        if timer is not None:
+            sq, sk, sv, mask = dense_sdpa_inputs(
+                torch, x["q"][:, None], x["k"], x["v"], x["tables"],
+                x["pos"][:, None])
+            row["ms"] = timer(lambda: pa.paged_attention_cuda(*args))
+            row["plain_ms"] = timer(lambda: paged_attention(*args))
+            row["library_ms"] = timer(
+                lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask))
+            row["bound_ms"], row["bound_by"] = decode_bound(x, name, esize)
+            log(f"paged_decode {name}: {json.dumps(row)}")
+        rows[("paged_decode", name)] = row
+
+        for label, starts in (("fresh", [0, 0, 0, 0]),
+                              ("ragged", [37, 100, 256, 500])):
+            x = prefill_case(torch, dtype, starts)
+            args = (x["q"], x["k"], x["v"], x["tables"], x["pos"])
+            got = pa.paged_prefill_attention_cuda(*args)
+            torch.cuda.synchronize()
+            err = compare(f"paged_prefill {label}", got,
+                          paged_prefill_attention(*args), name)
+            row = {"max_abs_err": err}
+            if timer is not None:
+                sq, sk, sv, mask = dense_sdpa_inputs(
+                    torch, x["q"], x["k"], x["v"], x["tables"], x["pos"])
+                row["ms"] = timer(lambda: pa.paged_prefill_attention_cuda(*args))
+                row["plain_ms"] = timer(lambda: paged_prefill_attention(*args))
+                row["library_ms"] = timer(
+                    lambda: F.scaled_dot_product_attention(
+                        sq, sk, sv, attn_mask=mask))
+                row["bound_ms"], row["bound_by"] = prefill_bound(x, name, esize)
+                log(f"paged_prefill {name} {label}: {json.dumps(row)}")
+            rows[("paged_prefill", name, label)] = row
+        # windowed variant, checked for agreement only (no engine path)
+        x = prefill_case(torch, dtype, [37, 100, 256, 500])
+        args = (x["q"], x["k"], x["v"], x["tables"], x["pos"])
+        got = pa.paged_prefill_attention_cuda(*args, window=200)
+        torch.cuda.synchronize()
+        compare("paged_prefill window=200", got,
+                paged_prefill_attention(*args, window=200), name)
+    return rows
+
+
+# ---------------------------------------------------------------- engine
+
+def serve(torch, engine, prompts, params) -> dict:
+    """Submit every request, step the engine until idle; per-step host
+    times by kind (each step ends in its token sync, so the device work
+    of the step is done when it returns)."""
+    steps = {"prefill": [], "decode": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, s) for p, s in zip(prompts, params)]
+    while True:
+        ts = time.perf_counter()
+        if not engine.step():
+            break
+        steps[engine.last_step_kind].append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    return {"outs": [list(s) for s in streams],
+            "seconds": time.perf_counter() - t0, "steps": steps}
+
+
+def engine_phase(torch) -> dict:
+    import numpy as np
+
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, SamplingParams
+
+    cfg = GPTConfig.gpt2_small()
+    engine = LLMEngine(
+        EngineConfig(model_config=cfg, block_size=16, num_blocks=1024,
+                     max_batch_size=8, prefill_chunk_tokens=256, seed=0),
+        auto_step=False,
+    )
+    assert engine.device.type == "cuda", engine.device
+    rng = np.random.default_rng(0)
+    lengths = [30, 64, 120, 200, 333, 512, 700, 900]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    params = [SamplingParams(max_new_tokens=32) for _ in prompts]
+    params[3] = SamplingParams(max_new_tokens=32, temperature=0.8, top_p=0.9,
+                               seed=7)
+    # warm-up pass over the same requests (cuBLAS handles, lazily loaded
+    # modules, allocator); its launches are not counted
+    warm = serve(torch, engine, prompts, params)
+    pf0, dec0 = engine.num_prefill_calls, engine.num_decode_steps
+    pa.reset_launches()
+    run = serve(torch, engine, prompts, params)
+    launches = dict(pa.LAUNCHES)
+    prefill_calls = engine.num_prefill_calls - pf0
+    decode_steps = engine.num_decode_steps - dec0
+    outs = run["outs"]
+    for o in outs:
+        if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
+            raise AssertionError(f"bad stream {o}")
+    if outs != warm["outs"]:
+        raise AssertionError("a second pass over the same requests differs")
+    c = engine.cache
+    if c.free_blocks != c.cfg.usable_blocks or c.reserved_blocks != 0:
+        raise AssertionError(
+            f"pool not whole: {c.free_blocks} free of {c.cfg.usable_blocks}, "
+            f"{c.reserved_blocks} reserved")
+    want = {"paged_decode": cfg.n_layer * decode_steps,
+            "paged_prefill": cfg.n_layer * prefill_calls}
+    ntok = sum(map(len, outs))
+    steps = run["steps"]
+    log(f"engine: {len(outs)} requests, {ntok} tokens in "
+        f"{run['seconds']:.3f} s = {ntok / run['seconds']:.1f} tokens/s "
+        f"(first pass {warm['seconds']:.3f} s); {prefill_calls} prefill "
+        f"calls, mean {1e3 * statistics.mean(steps['prefill']):.2f} ms; "
+        f"{decode_steps} decode steps, mean "
+        f"{1e3 * statistics.mean(steps['decode']):.2f} ms; "
+        f"launches {launches} (expected {want})")
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    log(f"first tokens: {[o[:4] for o in outs]}")
+    return {"engine": engine, "launches": launches, "prompts": prompts,
+            "params": params}
+
+
+def profile_phase(torch, eng) -> None:
+    """One more warm pass over the same requests under torch.profiler:
+    device time by kernel, the device's busy share of the wall time, the
+    step times by kind, device launches per step and host ops by CPU
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = serve(torch, eng["engine"], eng["prompts"], eng["params"])
+    # device-side entries only (kernels, copies, memsets): the host ops
+    # that launched them report the same time again
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    wall_ms = run["seconds"] * 1e3
+    log(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}); steps "
+        + ", ".join(f"{k} n={len(v)} mean {1e3 * statistics.mean(v):.2f} ms"
+                    for k, v in run["steps"].items()))
+    for us, count, key in rows[:20]:
+        log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
+            f"x{count:<6d} {key[:110]}")
+    # the host side: device launches per step, and host ops by self CPU
+    # time (profiler overhead included, so read the shares, not the ms)
+    nsteps = sum(len(v) for v in run["steps"].values())
+    host = sorted(((e.self_cpu_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.self_cpu_time_total > 0), reverse=True)
+    host_ms = sum(h[0] for h in host) / 1e3
+    log(f"profile host: {sum(r[1] for r in rows) / nsteps:.1f} device "
+        f"launches per step; host ops {host_ms:.1f} ms self CPU time")
+    for us, count, key in host[:15]:
+        log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / host_ms:5.1f}% "
+            f"x{count:<6d} {key[:110]}")
+
+
+def backends_phase(torch, engine) -> float:
+    """Same weights and inputs through the CUDA kernels and through the
+    plain backend: one fresh prefill, then decode steps."""
+    import numpy as np
+
+    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
+
+    base = engine.executor.model
+    models = {}
+    for backend in ("cuda", "torch"):
+        m = GPT(dataclasses.replace(base.cfg, attention_backend=backend),
+                base.device)
+        m.load_state_dict(base.state_dict())
+        models[backend] = m
+    cfg = base.cfg
+    B, S, bs, steps = 2, 320, 16, 4
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([S, 250], dtype=torch.int32, device="cuda")
+    nb = (S + steps + bs - 1) // bs + 1
+    tables = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                          device="cuda").reshape(B, nb)
+    logits = {}
+    for backend, m in models.items():
+        cache = PagedKVCache(KVCacheConfig(
+            n_layer=cfg.n_layer, n_kv_head=cfg.n_head, head_dim=cfg.head_dim,
+            num_blocks=B * nb + 1, block_size=bs, dtype=cfg.dtype,
+            device="cuda"))
+        out, _, _ = m.prefill(cache.k, cache.v, tokens, lengths, tables)
+        seq = [out]
+        nxt = out.argmax(-1).to(torch.int32)
+        pos = lengths.clone()
+        for _ in range(steps):
+            out, _, _ = m.decode_step(cache.k, cache.v, nxt, pos, tables)
+            seq.append(out)
+            nxt = out.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        logits[backend] = torch.stack(seq)
+    if not torch.isfinite(logits["cuda"]).all():
+        raise AssertionError("non-finite logits from the CUDA path")
+    diff = (logits["cuda"] - logits["torch"]).abs().max().item()
+    scale = logits["torch"].abs().max().item()
+    log(f"logits cuda vs torch backend: max_abs_diff {diff:.3e} "
+        f"(tol {LOGIT_TOL}; max |logit| {scale:.3f})")
+    if not diff <= LOGIT_TOL:
+        raise AssertionError(f"backends disagree: {diff}")
+    return diff
+
+
+# ------------------------------------------------------------------ main
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--quick", action="store_true",
+                        help="build and compare each kernel once, then stop")
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile a warm engine pass")
+    args = parser.parse_args()
+    if not os.path.isdir(os.path.join(HERE, "ray_tpu_torch", "csrc")):
+        print("chip_smoke.py must run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs a card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from ray_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    cap = torch.cuda.get_device_capability(0)
+    log(f"card: {card}; capability {cap}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    if cap < (9, 0):
+        raise AssertionError(f"needs compute capability >= 9.0, got {cap}")
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
+        f"({', '.join(_build.sources())})")
+
+    rows = kernels_phase(torch, args.quick)
+    if args.quick:
+        log(card)
+        return 0
+    eng = engine_phase(torch)
+    backends_phase(torch, eng["engine"])
+    if args.profile:
+        profile_phase(torch, eng)
+
+    kernels = []
+    for name, replaces, key in (
+        ("paged_decode", "ray_tpu/ops/paged_attention.py:104",
+         ("paged_decode", "bfloat16")),
+        ("paged_prefill", "ray_tpu/ops/paged_attention.py:322",
+         ("paged_prefill", "bfloat16", "fresh")),
+    ):
+        r = rows[key]
+        f32 = rows[(key[0], "float32") + key[2:]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": eng["launches"][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "f32": f32,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,267 @@
+"""GPT-2 family: KV-cached serving paths (counterpart of
+``ray_tpu/models/gpt.py``'s ``GPTConfig``, ``gpt_init``, ``gpt_prefill``
+and ``gpt_decode_step``).
+
+Weights: the matmul weights, biases and embeddings are held once in
+``cfg.dtype`` (the JAX package casts its f32 masters to ``cfg.dtype`` at
+every use, which gives the same values); the layer-norm parameters stay
+f32, as the JAX layer norm reads its masters in f32. Activations run in
+``cfg.dtype``; layer norm and softmax compute in f32; logits come out f32.
+Linear weights keep the JAX layout ``[in, out]`` (``x @ w``).
+
+The paged pool ``[n_layer, num_blocks, block_size, n_head, head_dim]`` is
+written IN PLACE; ``prefill`` and ``decode_step`` still return it, so the
+call contract is the JAX one: ``(logits or sampled ids, cache_k, cache_v)``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+from torch import nn
+
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.ops.attention import mha_reference
+from ray_tpu_torch.ops.kv_cache import scatter_kv, write_slots
+from ray_tpu_torch.ops.layers import gelu, layer_norm
+from ray_tpu_torch.ops.paged_attention import (
+    decode_attention,
+    prefill_attention,
+    resolve_backend,
+)
+from ray_tpu_torch.ops.sampling import sample_tokens
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304  # 50257 padded to a multiple of 128
+    max_seq_len: int = 1024
+    n_layer: int = 12
+    n_head: int = 12
+    d_model: int = 768
+    d_mlp: int = 3072
+    dtype: Any = torch.bfloat16
+    # paged attention backend: auto | torch | cuda ("auto" = the CUDA
+    # kernels for tensors on a card, the plain versions on the CPU)
+    attention_backend: str = "auto"
+
+    @staticmethod
+    def gpt2_small() -> "GPTConfig":
+        return GPTConfig()
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "GPTConfig":
+        """Test-size config."""
+        return GPTConfig(
+            vocab_size=vocab_size, max_seq_len=128, n_layer=2, n_head=4,
+            d_model=64, d_mlp=256,
+        )
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_head
+
+
+def _linear(x, w, b):
+    """``x @ w + b`` for w in the JAX ``[in, out]`` layout, the bias added
+    in the product's epilogue (one launch instead of two)."""
+    out = torch.addmm(b, x.reshape(-1, w.shape[0]), w)
+    return out.reshape(*x.shape[:-1], w.shape[1])
+
+
+# parameters held in f32 whatever cfg.dtype is (see module docstring)
+_F32_PARAMS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
+               "ln_f_scale", "ln_f_bias")
+
+
+def _param(shape, name: str, cfg: GPTConfig, device) -> nn.Parameter:
+    dtype = torch.float32 if name in _F32_PARAMS else cfg.dtype
+    return nn.Parameter(
+        torch.empty(shape, dtype=dtype, device=device), requires_grad=False
+    )
+
+
+class Block(nn.Module):
+    """One transformer block's weights."""
+
+    SHAPES = {
+        "ln1_scale": ("D",), "ln1_bias": ("D",),
+        "qkv_w": ("D", "3D"), "qkv_b": ("3D",),
+        "proj_w": ("D", "D"), "proj_b": ("D",),
+        "ln2_scale": ("D",), "ln2_bias": ("D",),
+        "mlp_in_w": ("D", "M"), "mlp_in_b": ("M",),
+        "mlp_out_w": ("M", "D"), "mlp_out_b": ("D",),
+    }
+
+    def __init__(self, cfg: GPTConfig, device):
+        super().__init__()
+        dims = {"D": cfg.d_model, "3D": 3 * cfg.d_model, "M": cfg.d_mlp}
+        for name, shape in self.SHAPES.items():
+            setattr(self, name, _param(tuple(dims[d] for d in shape), name,
+                                       cfg, device))
+
+
+class GPT(nn.Module):
+    """GPT-2 with the engine's prefill and decode-step paths."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        D = cfg.d_model
+        self.wte = _param((cfg.vocab_size, D), "wte", cfg, self.device)
+        self.wpe = _param((cfg.max_seq_len, D), "wpe", cfg, self.device)
+        self.blocks = nn.ModuleList(
+            Block(cfg, self.device) for _ in range(cfg.n_layer)
+        )
+        self.ln_f_scale = _param((D,), "ln_f_scale", cfg, self.device)
+        self.ln_f_bias = _param((D,), "ln_f_bias", cfg, self.device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "GPT":
+        """GPT-2 init from ``generator`` (on this model's device):
+        normal(0.02), wpe normal(0.01), residual projections scaled by
+        1/sqrt(2 * n_layer), biases 0, layer-norm scales 1."""
+        std = 0.02
+        resid = std / math.sqrt(2 * self.cfg.n_layer)
+
+        def normal_(p, scale):
+            x = torch.randn(p.shape, generator=generator, device=self.device,
+                            dtype=torch.float32)
+            p.copy_(x * scale)
+
+        normal_(self.wte, std)
+        normal_(self.wpe, std / 2)
+        for blk in self.blocks:
+            normal_(blk.qkv_w, std)
+            normal_(blk.proj_w, resid)
+            normal_(blk.mlp_in_w, std)
+            normal_(blk.mlp_out_w, resid)
+            for name in ("qkv_b", "proj_b", "mlp_in_b", "mlp_out_b",
+                         "ln1_bias", "ln2_bias"):
+                getattr(blk, name).zero_()
+            blk.ln1_scale.fill_(1.0)
+            blk.ln2_scale.fill_(1.0)
+        self.ln_f_scale.fill_(1.0)
+        self.ln_f_bias.zero_()
+        return self
+
+    # ---- block pieces (models/gpt.py _attn_qkv / _attn_residual /
+    # _mlp_residual) ----
+
+    def _attn_qkv(self, x, bp: Block):
+        B, S, _ = x.shape
+        H, hd = self.cfg.n_head, self.cfg.head_dim
+        h = layer_norm(x, bp.ln1_scale, bp.ln1_bias)
+        qkv = _linear(h, bp.qkv_w, bp.qkv_b)
+        q, k, v = qkv.split(self.cfg.d_model, dim=-1)
+        return (q.reshape(B, S, H, hd), k.reshape(B, S, H, hd),
+                v.reshape(B, S, H, hd))
+
+    @staticmethod
+    def _attn_residual(x, attn, bp: Block):
+        return x + _linear(attn, bp.proj_w, bp.proj_b)
+
+    @staticmethod
+    def _mlp_residual(x, bp: Block):
+        h = layer_norm(x, bp.ln2_scale, bp.ln2_bias)
+        h = gelu(_linear(h, bp.mlp_in_w, bp.mlp_in_b))
+        return x + _linear(h, bp.mlp_out_w, bp.mlp_out_b)
+
+    def _logits(self, h):
+        # tied lm head in f32: bf16 values are exact in f32, so this is the
+        # JAX head's bf16 inputs with an f32 accumulator and f32 output
+        return torch.matmul(h.float(), self.wte.float().t())
+
+    # ---- KV-cached serving paths ----
+
+    @torch.no_grad()
+    def prefill(self, cache_k, cache_v, tokens, lengths, block_tables,
+                start=None, sample=None):
+        """Prompt pass over right-padded chunks, writing every valid
+        position's K/V into the pool. tokens [B, S], lengths [B] (valid
+        prefix per row), block_tables [B, NB] int32; ``start`` [B] gives
+        each row's first true position (chunked prefill), None = 0.
+        Returns (last-valid-token logits [B, V] f32, or sampled ids [B]
+        int32 with ``sample``; cache_k; cache_v)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        D = cfg.d_model
+        dev = self.device
+        tokens = tokens.long()
+        ar = torch.arange(S, dtype=torch.int32, device=dev)
+        if start is None:
+            pos = ar[None, :].expand(B, S)
+            x = self.wte[tokens] + self.wpe[:S]
+        else:
+            pos = start.to(torch.int32)[:, None] + ar[None, :]
+            # padding columns can run past the table; they are masked
+            emb_pos = pos.clamp(max=cfg.max_seq_len - 1).long()
+            x = self.wte[tokens] + self.wpe[emb_pos]
+        valid = ar[None, :] < lengths[:, None]
+        backend = resolve_backend(cfg.attention_backend, dev)
+        attn_pos = torch.where(valid, pos, 0).to(torch.int32).contiguous()
+        slots = write_slots(pos, block_tables, cache_k.shape[2], valid)
+        for layer, bp in enumerate(self.blocks):
+            k_layer, v_layer = cache_k[layer], cache_v[layer]
+            q, kk, vv = self._attn_qkv(x, bp)
+            scatter_kv(k_layer, v_layer, kk, vv, slots)
+            if start is None and backend == "torch":
+                # fresh prompt, plain path: attention over the chunk alone
+                attn = mha_reference(
+                    q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                    causal=True,
+                ).transpose(1, 2).reshape(B, S, D)
+            else:
+                attn = prefill_attention(
+                    q.contiguous(), k_layer, v_layer, block_tables, attn_pos,
+                    backend=backend,
+                ).reshape(B, S, D)
+            x = self._attn_residual(x, attn, bp)
+            x = self._mlp_residual(x, bp)
+        h = layer_norm(x, self.ln_f_scale, self.ln_f_bias)
+        h_last = h[torch.arange(B, device=dev), (lengths - 1).long()]
+        logits = self._logits(h_last)
+        if sample is None:
+            return logits, cache_k, cache_v
+        new_pos = lengths if start is None else start + lengths
+        return sample_tokens(logits, new_pos, sample), cache_k, cache_v
+
+    @torch.no_grad()
+    def decode_step(self, cache_k, cache_v, tokens, positions, block_tables,
+                    sample=None):
+        """One decode step: tokens [B] (each sequence's newest token) at
+        positions [B] int32; writes its K/V, attends the paged context
+        (mask includes self). Padding rows use block 0 and position 0.
+        Returns (next-token logits [B, V] f32 or sampled ids; cache_k;
+        cache_v)."""
+        B = tokens.shape[0]
+        D = self.cfg.d_model
+        backend = resolve_backend(self.cfg.attention_backend, self.device)
+        x = (self.wte[tokens.long()] + self.wpe[positions.long()])[:, None, :]
+        slots = write_slots(positions, block_tables, cache_k.shape[2])
+        for layer, bp in enumerate(self.blocks):
+            k_layer, v_layer = cache_k[layer], cache_v[layer]
+            q, kk, vv = self._attn_qkv(x, bp)  # [B, 1, H, hd]
+            scatter_kv(k_layer, v_layer, kk[:, 0], vv[:, 0], slots)
+            attn = decode_attention(
+                q[:, 0].contiguous(), k_layer, v_layer, block_tables,
+                positions, backend=backend,
+            )
+            x = self._attn_residual(x, attn.reshape(B, 1, D), bp)
+            x = self._mlp_residual(x, bp)
+        h = layer_norm(x[:, 0], self.ln_f_scale, self.ln_f_bias)
+        logits = self._logits(h)
+        if sample is None:
+            return logits, cache_k, cache_v
+        return sample_tokens(logits, positions + 1, sample), cache_k, cache_v
+
+
+def gpt_init(cfg: GPTConfig, seed: int = 0, device=None) -> GPT:
+    """A GPT with seeded random weights, built on ``device``."""
+    model = GPT(cfg, device)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    return model.init_weights(gen)
