@@ -7,22 +7,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    compute capability is at least 9.0;
 2. builds the CUDA kernels from ``ray_tpu_torch/csrc`` and prints the
    build time;
-3. holds each kernel against its plain PyTorch version at the serving
-   path's shapes, in bf16 and f32, and times kernel, plain version, one
-   PyTorch library call for the same function (SDPA over the gathered
-   dense K/V, a yardstick the port never calls) and the card's bound;
-4. serves 8 requests on GPT-2 125M at full width (bf16, seeded random
+3. holds each kernel against its plain PyTorch version at its path's
+   shapes, in bf16 and f32, and times kernel, plain version, one PyTorch
+   library call for the same function (SDPA, a yardstick the port never
+   calls) and the card's bound: the paged kernels B4/B5 at the serving
+   shapes, the flash-attention kernels B1-B3 at the training shapes
+   (B 16, 12 heads of 64, S 1024, causal; the full variant for agreement);
+4. trains GPT-2 125M at full width and depth (bf16 activations, f32
+   masters, seeded random weights, one fixed [16, 1025] batch) through the
+   port's ``run_gpt_bench``: the loss must stay finite and fall, and each
+   flash kernel must launch 12 layers x steps times; then, on one set of
+   weights and a [2, 1025] batch, the loss and every gradient through the
+   CUDA kernels against the plain backend;
+5. serves 8 requests on GPT-2 125M at full width (bf16, seeded random
    weights) through ``LLMEngine`` and checks every stream, the pool and
    that both kernels' launch counts equal 12 layers x the engine's calls;
-5. on the same weights runs one prefill plus decode steps with the CUDA
+6. on the same weights runs one prefill plus decode steps with the CUDA
    kernels and with the plain backend and compares the logits;
-6. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+7. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
 after one comparison per kernel (a first check of a new kernel);
-``--profile`` adds a profiled warm pass of the engine's requests (device
-time by kernel, device idle share, step times).
+``--profile`` adds a profiled train step and a profiled warm pass of the
+engine's requests (device time by kernel, device idle share, step times).
 """
 from __future__ import annotations
 
@@ -48,8 +56,16 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1.6e-2)}
 # max |logits(cuda kernels) - logits(plain backend)| on the bf16 model:
 # bf16 attention outputs differ by a few ulps per layer over 12 layers
 LOGIT_TOL = 0.1
+# training, CUDA kernels vs plain backend on the bf16 model: the two
+# attentions differ by bf16 ulps (2^-8 relative rounding) at B1's online
+# softmax; through 12 layers forward and back those perturbations stay a
+# few rounding units of each gradient's norm, and of the loss
+LOSS_TOL = 1e-2        # absolute, on a loss of about 10.8
+GRAD_REL_TOL = 2e-2    # ||g_cuda - g_plain|| / ||g_plain||, each parameter
 
 DECODE = dict(B=8, H=12, hd=64, bs=16, num_blocks=1024, max_len=1024)
+FLASH = dict(B=16, H=12, S=1024, D=64)   # GPT-2 125M training shapes
+TRAIN = dict(batch_size=16, seq_len=1024, warmup=2, steps=4)
 PREFILL = dict(B=4, S=512, H=12, hd=64, bs=16, num_blocks=1024, max_len=1024)
 
 
@@ -257,6 +273,241 @@ def kernels_phase(torch, quick: bool) -> dict:
     return rows
 
 
+# ------------------------------------------------------- flash attention
+
+def flash_bounds(dtype_name, esize) -> dict:
+    """Bound of each flash kernel at FLASH, causal: every input read once,
+    every output written once; 2 * D flops per product per visible pair
+    (B1 two products, B2 four, B3 three)."""
+    c = FLASH
+    B, H, S, D = c["B"], c["H"], c["S"], c["D"]
+    pairs = B * H * S * (S + 1) // 2
+    t = B * H * S * D * esize          # one [B, H, S, D] tensor
+    r = B * H * S * 4                  # one [B, H, S] f32 vector
+    return {
+        "flash_fwd": bound(4 * t + r, 4 * D * pairs, dtype_name),
+        "flash_bwd_dkv": bound(6 * t + 2 * r, 8 * D * pairs, dtype_name),
+        "flash_bwd_dq": bound(5 * t + 2 * r, 6 * D * pairs, dtype_name),
+    }
+
+
+def flash_phase(torch, quick: bool) -> dict:
+    """B1-B3 against their plain versions at the training shapes; the
+    backward kernels read the plain forward's o and lse, so each kernel is
+    held alone."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as at
+
+    c = FLASH
+    timer = None if quick else Timer(torch)
+    scale = c["D"] ** -0.5
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        esize = torch.empty(0, dtype=dtype).element_size()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v, do = (torch.randn(c["B"], c["H"], c["S"], c["D"],
+                                   generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        for causal in (True, False):
+            kw = dict(causal=causal, scale=scale)
+            label = "causal" if causal else "full"
+            o, lse = at.flash_forward_cuda(q, k, v, **kw)
+            o_ref, lse_ref = at.flash_forward_reference(q, k, v, **kw)
+            delta = at.attention_delta(o_ref, do)
+            bargs = (q, k, v, lse_ref, delta, do)
+            dk, dv = at.flash_bwd_dkv_cuda(*bargs, **kw)
+            dq = at.flash_bwd_dq_cuda(*bargs, **kw)
+            torch.cuda.synchronize()
+            dk_ref, dv_ref = at.flash_bwd_dkv_reference(*bargs, **kw)
+            dq_ref = at.flash_bwd_dq_reference(*bargs, **kw)
+
+            def cmp(what, got, want):
+                return compare(f"{what} {label}", got, want, name)
+
+            errs = {
+                "flash_fwd": max(cmp("flash_fwd o", o, o_ref),
+                                 cmp("flash_fwd lse", lse, lse_ref)),
+                "flash_bwd_dkv": max(cmp("flash_bwd_dkv dk", dk, dk_ref),
+                                     cmp("flash_bwd_dkv dv", dv, dv_ref)),
+                "flash_bwd_dq": cmp("flash_bwd_dq dq", dq, dq_ref),
+            }
+            del o, lse, dk, dv, dq, dk_ref, dv_ref, dq_ref
+            if not causal:  # the full variant: agreement only (ViT's path)
+                continue
+            for kname, err in errs.items():
+                rows[(kname, name)] = {"max_abs_err": err}
+            if timer is None:
+                continue
+            fns = {
+                "flash_fwd": (
+                    lambda: at.flash_forward_cuda(q, k, v, **kw),
+                    lambda: at.flash_forward_reference(q, k, v, **kw)),
+                "flash_bwd_dkv": (
+                    lambda: at.flash_bwd_dkv_cuda(*bargs, **kw),
+                    lambda: at.flash_bwd_dkv_reference(*bargs, **kw)),
+                "flash_bwd_dq": (
+                    lambda: at.flash_bwd_dq_cuda(*bargs, **kw),
+                    lambda: at.flash_bwd_dq_reference(*bargs, **kw)),
+            }
+            # library yardstick: SDPA forward, and SDPA's backward through
+            # autograd, which computes B2's and B3's work together
+            lq, lk, lv = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+            library = {
+                "flash_fwd": timer(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)),
+                "flash_bwd_dkv": timer(lambda: torch.autograd.grad(
+                    lo, (lq, lk, lv), do, retain_graph=True)),
+            }
+            library["flash_bwd_dq"] = library["flash_bwd_dkv"]
+            del lo, lq, lk, lv
+            bounds = flash_bounds(name, esize)
+            for kname, (kern, plain) in fns.items():
+                row = rows[(kname, name)]
+                row["ms"] = timer(kern)
+                row["plain_ms"] = timer(plain)
+                row["library_ms"] = library[kname]
+                row["bound_ms"], row["bound_by"] = bounds[kname]
+                log(f"{kname} {name}: {json.dumps(row)}")
+    return rows
+
+
+# ---------------------------------------------------------------- training
+
+def train_phase(torch) -> dict:
+    """GPT-2 125M train steps through the port's entry point; checks the
+    losses and that each flash kernel ran once per layer and step."""
+    import math
+
+    from ray_tpu_torch.benchmarks.gpt_mfu import run_gpt_bench
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.ops import attention as at
+
+    n_layer = GPTConfig.gpt2_small().n_layer
+    at.reset_launches()
+    out = run_gpt_bench(config="gpt2_small", **TRAIN)
+    launches = dict(at.LAUNCHES)
+    want = {name: n_layer * (TRAIN["warmup"] + TRAIN["steps"])
+            for name in launches}
+    losses = out["losses"]
+    log(f"train: GPT-2 {out['n_params']} params, batch {out['batch_size']} "
+        f"x {out['seq_len']}, {out['steps']} timed steps: step "
+        f"{out['step_ms']:.2f} ms, {out['tokens_per_s']:.1f} tokens/s, "
+        f"MFU {out['mfu']} (peak {out['peak_tflops']} TFLOP/s); losses "
+        f"{[round(x, 4) for x in losses]}; launches {launches} "
+        f"(expected {want})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on one batch: {losses}")
+    if launches != want or min(launches.values()) == 0:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    out["launches"] = launches
+    return out
+
+
+def loss_phase(torch, timer) -> float:
+    """Time of the fused lm-head + loss (forward with its closed-form
+    gradients) on one step's tokens: the lm-head/loss share of a step."""
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.ops.loss import fused_lm_head_loss
+
+    cfg = GPTConfig.gpt2_small()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = TRAIN["batch_size"] * TRAIN["seq_len"]
+    x = torch.randn(n, cfg.d_model, generator=gen, device="cuda").to(cfg.dtype)
+    w = 0.02 * torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
+                           device="cuda")
+    t = torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda")
+    ms = timer(lambda: fused_lm_head_loss(x, w, t), iters=5)
+    log(f"fused lm-head loss, {n} tokens x vocab {cfg.vocab_size}: {ms:.3f} ms")
+    return ms
+
+
+def train_backends_phase(torch) -> dict:
+    """Loss and every gradient of one step through the CUDA kernels against
+    the plain backend, same weights, a [2, 1025] batch."""
+    from ray_tpu_torch.benchmarks.gpt_mfu import bench_batch
+    from ray_tpu_torch.models.gpt import GPT, GPTConfig, gpt_init
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), attention_backend="cuda")
+    models = {"cuda": gpt_init(cfg, seed=0, device="cuda", train=True)}
+    models["torch"] = GPT(dataclasses.replace(cfg, attention_backend="torch"),
+                          "cuda", train=True)
+    models["torch"].load_state_dict(models["cuda"].state_dict())
+    batch = bench_batch(cfg, 2, 1024, 5, "cuda")
+    loss, grads = {}, {}
+    for name, m in models.items():
+        value = m.loss(batch)
+        value.backward()
+        loss[name] = value.item()
+        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+    dloss = abs(loss["cuda"] - loss["torch"])
+    rel = {}
+    for n, want in grads["torch"].items():
+        diff = (grads["cuda"][n] - want).float().norm()
+        rel[n] = (diff / want.float().norm().clamp(min=1e-30)).item()
+    worst = max(rel, key=rel.get)
+    log(f"train cuda vs torch backend: loss {loss['cuda']:.6f} vs "
+        f"{loss['torch']:.6f} (|diff| {dloss:.3e}, tol {LOSS_TOL}); worst "
+        f"gradient rel L2 {rel[worst]:.3e} ({worst}; tol {GRAD_REL_TOL}; "
+        f"median {statistics.median(rel.values()):.3e})")
+    if not dloss <= LOSS_TOL:
+        raise AssertionError(f"losses disagree: {loss}")
+    if not rel[worst] <= GRAD_REL_TOL:
+        raise AssertionError(f"gradient {worst} disagrees: {rel[worst]}")
+    return {"loss_diff": dloss, "grad_rel": rel[worst]}
+
+
+def device_rows(prof):
+    """Device-side entries (kernels, copies, memsets) of a profile, by
+    total time: the host ops that launched them report the same time."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, reverse=True)
+
+
+def profile_train(torch) -> None:
+    """Two warm GPT-2 train steps under torch.profiler: device time by
+    kernel and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.benchmarks.gpt_mfu import (
+        bench_batch,
+        make_optimizer,
+        train_step,
+    )
+    from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+
+    cfg = GPTConfig.gpt2_small()
+    model = gpt_init(cfg, seed=0, device="cuda", train=True)
+    opt = make_optimizer(model)
+    batch = bench_batch(cfg, TRAIN["batch_size"], TRAIN["seq_len"], 1, "cuda")
+    for _ in range(2):
+        train_step(model, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            train_step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log(f"profile train (2 steps): wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
+    for us, count, key in rows[:25]:
+        log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
+            f"x{count:<6d} {key[:110]}")
+
+
 # ---------------------------------------------------------------- engine
 
 def serve(torch, engine, prompts, params) -> dict:
@@ -346,12 +597,7 @@ def profile_phase(torch, eng) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run = serve(torch, eng["engine"], eng["prompts"], eng["params"])
-    # device-side entries only (kernels, copies, memsets): the host ops
-    # that launched them report the same time again
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = run["seconds"] * 1e3
     log(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
@@ -463,12 +709,17 @@ def main() -> int:
         f"({', '.join(_build.sources())})")
 
     rows = kernels_phase(torch, args.quick)
+    frows = flash_phase(torch, args.quick)
     if args.quick:
         log(card)
         return 0
+    train = train_phase(torch)
+    loss_phase(torch, Timer(torch))
+    train_backends_phase(torch)
     eng = engine_phase(torch)
     backends_phase(torch, eng["engine"])
     if args.profile:
+        profile_train(torch)
         profile_phase(torch, eng)
 
     kernels = []
@@ -490,6 +741,23 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "f32": f32,
+        })
+    for name, replaces, source in (
+        ("flash_fwd", "ray_tpu/ops/attention.py:129", "flash_fwd.cu"),
+        ("flash_bwd_dkv", "ray_tpu/ops/attention.py:288", "flash_bwd.cu"),
+        ("flash_bwd_dq", "ray_tpu/ops/attention.py:374", "flash_bwd.cu"),
+    ):
+        r = frows[(name, "bfloat16")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": train["launches"][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "f32": frows[(name, "float32")],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

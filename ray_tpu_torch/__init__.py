@@ -5,10 +5,12 @@ A package of its own beside the JAX one: it imports ``torch`` and never
 own copy of). Module names follow the JAX package so every counterpart is
 found at the same path:
 
-- ``ops/``        — layers, attention reference, paged KV ops, sampling and
-  the paged-attention dispatchers over the hand-written Hopper kernels
-  (``csrc/*.cu``, built at first use by ``_build.py``)
-- ``models/gpt.py`` — the GPT-2 family's KV-cached serving paths
+- ``ops/``        — layers, flash attention, the fused lm-head loss, paged
+  KV ops, sampling and the attention dispatchers over the hand-written
+  Hopper kernels (``csrc/*.cu``, built at first use by ``_build.py``)
+- ``models/gpt.py`` — the GPT-2 family's training and KV-cached serving
+  paths
+- ``benchmarks/gpt_mfu.py`` — GPT train steps: tokens/s and MFU
 - ``convert.py``  — the JAX parameter tree into the port's weights
 - ``serve/llm/``  — paged KV cache, single-device executor, the
   continuous-batching ``LLMEngine``

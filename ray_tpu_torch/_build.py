@@ -96,3 +96,33 @@ def load(name: str) -> ctypes.CDLL:
                     _libs[n] = ctypes.CDLL(path)
             lib = _libs[name]
         return lib
+
+
+# ctypes argument codes of ``bind``: pointers and the stream are "p"
+# (void*; a bare ctypes int would cut them to 32 bits), ints "i", floats "f"
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def bind(lib_name: str, fn_name: str, signature: str):
+    """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu`` with its
+    argument types declared from ``signature`` (one code of ``_CTYPES``
+    per argument) and an ``int`` (cudaError_t) result."""
+    lib = load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [_CTYPES[c] for c in signature]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def raise_on(lib_name: str, kernel: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error; every library exports
+    ``<lib_name>_error_string``."""
+    if rc != 0:
+        err = getattr(load(lib_name), lib_name + "_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: CUDA error {rc} "
+            f"({err(rc).decode()})"
+        )

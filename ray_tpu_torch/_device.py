@@ -22,3 +22,20 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is unavailable")
     return device
+
+
+BACKENDS = ("auto", "torch", "cuda")
+
+
+def resolve_backend(backend: str, device) -> str:
+    """Normalize the ``auto | torch | cuda`` kernel knob for tensors on
+    ``device`` (a ``torch.device`` or a tensor): ``auto`` picks the CUDA
+    kernels for a CUDA tensor and the plain versions for a CPU one."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"attention_backend must be one of {BACKENDS}, got {backend!r}"
+        )
+    if backend != "auto":
+        return backend
+    dev = device.device if isinstance(device, torch.Tensor) else torch.device(device)
+    return "cuda" if dev.type == "cuda" else "torch"

@@ -1,13 +1,19 @@
-"""GPT-2 family: KV-cached serving paths (counterpart of
-``ray_tpu/models/gpt.py``'s ``GPTConfig``, ``gpt_init``, ``gpt_prefill``
-and ``gpt_decode_step``).
+"""GPT-2 family (counterpart of ``ray_tpu/models/gpt.py``): the training
+paths ``hidden`` / ``forward`` / ``loss`` (``gpt_hidden`` / ``gpt_forward``
+/ ``gpt_loss``) and the KV-cached serving paths ``prefill`` /
+``decode_step`` (``gpt_prefill`` / ``gpt_decode_step``).
 
-Weights: the matmul weights, biases and embeddings are held once in
-``cfg.dtype`` (the JAX package casts its f32 masters to ``cfg.dtype`` at
-every use, which gives the same values); the layer-norm parameters stay
-f32, as the JAX layer norm reads its masters in f32. Activations run in
-``cfg.dtype``; layer norm and softmax compute in f32; logits come out f32.
-Linear weights keep the JAX layout ``[in, out]`` (``x @ w``).
+Weights, two policies:
+- serving (``GPT(cfg)``): the matmul weights, biases and embeddings are
+  held once in ``cfg.dtype``, without gradients (the JAX package casts its
+  f32 masters to ``cfg.dtype`` at every use, which gives the same values);
+  the layer-norm parameters stay f32, as the JAX layer norm reads its
+  masters in f32.
+- training (``GPT(cfg, train=True)``): every parameter is an f32 master
+  that requires grad, cast to ``cfg.dtype`` at each use, as in JAX.
+Activations run in ``cfg.dtype``; layer norm and softmax compute in f32;
+logits and the loss are f32. Linear weights keep the JAX layout
+``[in, out]`` (``x @ w``).
 
 The paged pool ``[n_layer, num_blocks, block_size, n_head, head_dim]`` is
 written IN PLACE; ``prefill`` and ``decode_step`` still return it, so the
@@ -21,11 +27,13 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.ops.attention import mha_reference
+from ray_tpu_torch.ops.attention import flash_attention, mha_reference
 from ray_tpu_torch.ops.kv_cache import scatter_kv, write_slots
 from ray_tpu_torch.ops.layers import gelu, layer_norm
+from ray_tpu_torch.ops.loss import fused_lm_head_loss
 from ray_tpu_torch.ops.paged_attention import (
     decode_attention,
     prefill_attention,
@@ -43,9 +51,16 @@ class GPTConfig:
     d_model: int = 768
     d_mlp: int = 3072
     dtype: Any = torch.bfloat16
-    # paged attention backend: auto | torch | cuda ("auto" = the CUDA
-    # kernels for tensors on a card, the plain versions on the CPU)
+    # training / full-sequence attention: flash (FlashAttention, kernels
+    # B1-B3) | xla (the plain mha_reference; the JAX name is kept). The
+    # JAX config's ``scan_layers`` has no eager counterpart: the port
+    # always runs the layers as a Python loop.
+    attention: str = "flash"
+    # kernel backend of every attention: auto | torch | cuda ("auto" = the
+    # CUDA kernels for tensors on a card, the plain versions on the CPU)
     attention_backend: str = "auto"
+    remat: bool = False       # recompute each block in the backward
+    fused_loss: bool = True   # chunked lm-head + CE, no [B, S, V] logits
 
     @staticmethod
     def gpt2_small() -> "GPTConfig":
@@ -66,8 +81,9 @@ class GPTConfig:
 
 def _linear(x, w, b):
     """``x @ w + b`` for w in the JAX ``[in, out]`` layout, the bias added
-    in the product's epilogue (one launch instead of two)."""
-    out = torch.addmm(b, x.reshape(-1, w.shape[0]), w)
+    in the product's epilogue (one launch instead of two). f32 masters are
+    cast to x's dtype here; serving weights already have it (no copy)."""
+    out = torch.addmm(b.to(x.dtype), x.reshape(-1, w.shape[0]), w.to(x.dtype))
     return out.reshape(*x.shape[:-1], w.shape[1])
 
 
@@ -76,10 +92,10 @@ _F32_PARAMS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
                "ln_f_scale", "ln_f_bias")
 
 
-def _param(shape, name: str, cfg: GPTConfig, device) -> nn.Parameter:
-    dtype = torch.float32 if name in _F32_PARAMS else cfg.dtype
+def _param(shape, name: str, cfg: GPTConfig, device, train: bool):
+    dtype = torch.float32 if train or name in _F32_PARAMS else cfg.dtype
     return nn.Parameter(
-        torch.empty(shape, dtype=dtype, device=device), requires_grad=False
+        torch.empty(shape, dtype=dtype, device=device), requires_grad=train
     )
 
 
@@ -95,29 +111,38 @@ class Block(nn.Module):
         "mlp_out_w": ("M", "D"), "mlp_out_b": ("D",),
     }
 
-    def __init__(self, cfg: GPTConfig, device):
+    def __init__(self, cfg: GPTConfig, device, train: bool = False):
         super().__init__()
         dims = {"D": cfg.d_model, "3D": 3 * cfg.d_model, "M": cfg.d_mlp}
         for name, shape in self.SHAPES.items():
             setattr(self, name, _param(tuple(dims[d] for d in shape), name,
-                                       cfg, device))
+                                       cfg, device, train))
 
 
 class GPT(nn.Module):
-    """GPT-2 with the engine's prefill and decode-step paths."""
+    """GPT-2 with the training paths and the engine's prefill and
+    decode-step paths. ``train=True`` holds f32 masters that require grad
+    (see the module docstring)."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, *, train: bool = False):
         super().__init__()
+        if cfg.attention not in ("flash", "xla"):
+            raise ValueError(f"attention must be flash or xla, got "
+                             f"{cfg.attention!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         D = cfg.d_model
-        self.wte = _param((cfg.vocab_size, D), "wte", cfg, self.device)
-        self.wpe = _param((cfg.max_seq_len, D), "wpe", cfg, self.device)
+
+        def param(shape, name):
+            return _param(shape, name, cfg, self.device, train)
+
+        self.wte = param((cfg.vocab_size, D), "wte")
+        self.wpe = param((cfg.max_seq_len, D), "wpe")
         self.blocks = nn.ModuleList(
-            Block(cfg, self.device) for _ in range(cfg.n_layer)
+            Block(cfg, self.device, train) for _ in range(cfg.n_layer)
         )
-        self.ln_f_scale = _param((D,), "ln_f_scale", cfg, self.device)
-        self.ln_f_bias = _param((D,), "ln_f_bias", cfg, self.device)
+        self.ln_f_scale = param((D,), "ln_f_scale")
+        self.ln_f_bias = param((D,), "ln_f_bias")
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "GPT":
@@ -173,7 +198,70 @@ class GPT(nn.Module):
     def _logits(self, h):
         # tied lm head in f32: bf16 values are exact in f32, so this is the
         # JAX head's bf16 inputs with an f32 accumulator and f32 output
-        return torch.matmul(h.float(), self.wte.float().t())
+        # (a training model's f32 master wte is cast to cfg.dtype first)
+        wte = self.wte.to(self.cfg.dtype)
+        return torch.matmul(h.float(), wte.float().t())
+
+    # ---- training paths (models/gpt.py gpt_hidden / gpt_forward /
+    # gpt_loss) ----
+
+    def _block(self, x, bp: Block):
+        """One transformer block over the full sequence, x [B, S, D]."""
+        B, S, D = x.shape
+        q, k, v = (t.transpose(1, 2) for t in self._attn_qkv(x, bp))
+        if self.cfg.attention == "flash":
+            attn = flash_attention(q, k, v, causal=True,
+                                   backend=self.cfg.attention_backend)
+        else:
+            attn = mha_reference(q, k, v, causal=True)
+        x = self._attn_residual(x, attn.transpose(1, 2).reshape(B, S, D), bp)
+        return self._mlp_residual(x, bp)
+
+    def hidden(self, tokens):
+        """tokens [B, S] -> final hidden states [B, S, D] in cfg.dtype, after
+        the final layer norm (everything but the lm head)."""
+        S = tokens.shape[1]
+        dt = self.cfg.dtype
+        x = self.wte[tokens.long()].to(dt) + self.wpe[:S].to(dt)
+        for bp in self.blocks:
+            if self.cfg.remat:
+                x = checkpoint(self._block, x, bp, use_reentrant=False)
+            else:
+                x = self._block(x, bp)
+        return layer_norm(x, self.ln_f_scale, self.ln_f_bias)
+
+    def forward(self, tokens):
+        """tokens [B, S] -> logits [B, S, vocab] f32."""
+        return self._logits(self.hidden(tokens))
+
+    def loss(self, batch: dict):
+        """Next-token cross-entropy (f32 scalar). batch: {"tokens": [B, S+1]}
+        or {"inputs": [B, S], "targets": [B, S]}, with an optional "mask":
+        [B, S] target-aligned, or [B, S+1] token-aligned (shifted with the
+        targets)."""
+        mask = batch.get("mask")
+        if "tokens" in batch:
+            tokens = batch["tokens"]
+            inputs, targets = tokens[:, :-1], tokens[:, 1:]
+            if mask is not None and mask.shape[-1] == tokens.shape[-1]:
+                mask = mask[:, 1:]
+        else:
+            inputs, targets = batch["inputs"], batch["targets"]
+        if self.cfg.fused_loss:
+            x = self.hidden(inputs)
+            B, S, D = x.shape
+            return fused_lm_head_loss(
+                x.reshape(B * S, D), self.wte, targets.reshape(B * S),
+                None if mask is None else mask.reshape(B * S).float(),
+            )
+        logits = self.forward(inputs)
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = logits.gather(-1, targets.long()[..., None])[..., 0]
+        ll = picked - lse
+        if mask is not None:
+            mask = mask.float()
+            return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+        return -ll.mean()
 
     # ---- KV-cached serving paths ----
 
@@ -259,9 +347,16 @@ class GPT(nn.Module):
         return sample_tokens(logits, positions + 1, sample), cache_k, cache_v
 
 
-def gpt_init(cfg: GPTConfig, seed: int = 0, device=None) -> GPT:
-    """A GPT with seeded random weights, built on ``device``."""
-    model = GPT(cfg, device)
+def gpt_init(cfg: GPTConfig, seed: int = 0, device=None, *,
+             train: bool = False) -> GPT:
+    """A GPT with seeded random weights, built on ``device`` (f32 masters
+    with gradients when ``train``)."""
+    model = GPT(cfg, device, train=train)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     return model.init_weights(gen)
+
+
+def gpt_num_params(cfg: GPTConfig) -> int:
+    """Parameter count (counted on the meta device: nothing allocated)."""
+    return sum(p.numel() for p in GPT(cfg, "meta").parameters())

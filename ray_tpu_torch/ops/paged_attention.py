@@ -21,15 +21,14 @@ kernel for a CUDA tensor and the plain version for a CPU tensor.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
+from ray_tpu_torch import _build
+from ray_tpu_torch._device import resolve_backend
 from ray_tpu_torch.ops.attention import LOG2E
 from ray_tpu_torch.ops.kv_cache import paged_attention, paged_prefill_attention
-
-BACKENDS = ("auto", "torch", "cuda")
 
 # launches of each kernel by its wrapper — a run resets these to 0 and
 # reads them to show which kernels its path went through
@@ -41,39 +40,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def resolve_backend(backend: str, device) -> str:
-    """Normalize the ``attention_backend`` knob for tensors on ``device``
-    (a ``torch.device`` or a tensor)."""
-    if backend not in BACKENDS:
-        raise ValueError(
-            f"attention_backend must be one of {BACKENDS}, got {backend!r}"
-        )
-    if backend != "auto":
-        return backend
-    dev = device.device if isinstance(device, torch.Tensor) else torch.device(device)
-    return "cuda" if dev.type == "cuda" else "torch"
-
-
-def _bind(name: str, n_shape_args: int, n_flag_args: int):
-    """The kernel's C entry point with its argument types declared: six
-    pointers, the shape ints, the f32 q scale, the flag ints, the stream."""
-    from ray_tpu_torch import _build
-
-    lib = _build.load(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = (
-            [ptr] * 6 + [i32] * n_shape_args + [ctypes.c_float]
-            + [i32] * n_flag_args + [ptr]
-        )
-        fn.restype = i32
-        err = getattr(lib, name + "_error_string")
-        err.argtypes = [i32]
-        err.restype = ctypes.c_char_p
-    return lib, fn
 
 
 def _check(name, q, k_layer, v_layer, block_tables, positions, q_dims):
@@ -117,12 +83,6 @@ def _check(name, q, k_layer, v_layer, block_tables, positions, q_dims):
         raise ValueError(f"{name}: all tensors must be contiguous")
 
 
-def _raise_on(lib, name: str, rc: int) -> None:
-    if rc != 0:
-        msg = getattr(lib, name + "_error_string")(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
-
-
 def paged_attention_cuda(
     q: torch.Tensor,
     k_layer: torch.Tensor,
@@ -141,7 +101,7 @@ def paged_attention_cuda(
     out = torch.empty_like(q)
     if B == 0:
         return out
-    lib, fn = _bind("paged_decode", 6, 1)
+    fn = _build.bind("paged_decode", "paged_decode", "p" * 6 + "i" * 6 + "fip")
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
@@ -150,7 +110,7 @@ def paged_attention_cuda(
             scale * LOG2E, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(lib, "paged_decode", rc)
+    _build.raise_on("paged_decode", "paged_decode", rc)
     LAUNCHES["paged_decode"] += 1
     return out
 
@@ -176,7 +136,8 @@ def paged_prefill_attention_cuda(
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    lib, fn = _bind("paged_prefill", 7, 2)
+    fn = _build.bind("paged_prefill", "paged_prefill",
+                     "p" * 6 + "i" * 7 + "fiip")
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
@@ -185,7 +146,7 @@ def paged_prefill_attention_cuda(
             scale * LOG2E, window or 0, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(lib, "paged_prefill", rc)
+    _build.raise_on("paged_prefill", "paged_prefill", rc)
     LAUNCHES["paged_prefill"] += 1
     return out
 

@@ -52,6 +52,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.convert\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.ops.paged_attention\n"
+        "import ray_tpu_torch.ops.attention, ray_tpu_torch.ops.loss\n"
+        "import ray_tpu_torch.benchmarks.gpt_mfu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -118,3 +120,27 @@ def test_kernel_build_is_keyed_by_source_and_headers(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
+
+
+def test_shared_binding_declares_argument_types(monkeypatch):
+    """``_build.bind`` (used by every kernel wrapper) declares one ctypes
+    type per signature code and an int result; ``raise_on`` passes rc 0."""
+    import ctypes
+
+    from ray_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "load", lambda name: ctypes.CDLL(None))
+    fn = _build.bind("libc", "abs", "i")
+    assert fn.argtypes == [ctypes.c_int] and fn.restype is ctypes.c_int
+    assert fn(-3) == 3
+    assert [t for t in map(_build._CTYPES.get, "pif")] == [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+    assert _build.raise_on("libc", "abs", 0) is None
+
+
+def test_run_gpt_bench_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from ray_tpu_torch.benchmarks.gpt_mfu import run_gpt_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_gpt_bench(config="tiny", batch_size=1, seq_len=8, steps=1)

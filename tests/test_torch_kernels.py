@@ -114,3 +114,53 @@ def test_gpt_cuda_backend_matches_torch_backend(cuda):
                                    tables)
         out[name] = torch.cat([logits, step])
     assert (out["cuda"] - out["torch"]).abs().max().item() <= 1e-4
+
+
+# ---- flash attention: B1 (forward), B2 (dK/dV) and B3 (dQ), at TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,causal", [(128, 64, True), (200, 64, True),
+                                        (96, 32, False), (64, 128, True),
+                                        (17, 64, False)])
+def test_flash_kernels_match_plain(cuda, dtype, S, D, causal):
+    from ray_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v, do = (torch.randn(2, 3, S, D, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    scale = D ** -0.5
+    before = dict(at.LAUNCHES)
+    o, lse = at.flash_forward_cuda(q, k, v, causal=causal, scale=scale)
+    o_ref, lse_ref = at.flash_forward_reference(q, k, v, causal=causal,
+                                                scale=scale)
+    torch.cuda.synchronize()
+    _assert_close(o, o_ref, dtype)
+    _assert_close(lse, lse_ref, dtype)
+    # the backward from the same saved tensors on both sides
+    grads = at.flash_backward_cuda(q, k, v, o_ref, lse_ref, do,
+                                   causal=causal, scale=scale)
+    refs = at.flash_backward_reference(q, k, v, o_ref, lse_ref, do,
+                                       causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    for got, want in zip(grads, refs):
+        _assert_close(got, want, dtype)
+    assert {n: at.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+
+
+def test_flash_attention_autograd_on_cuda(cuda):
+    from ray_tpu_torch.ops.attention import flash_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 8, 80, 64, generator=gen, device=cuda)
+    k, v = (torch.randn(2, 2, 80, 64, generator=gen, device=cuda)
+            for _ in range(2))
+    out = {}
+    for backend in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = flash_attention(*leaves, causal=True, backend=backend)
+        (o * o).sum().backward()
+        out[backend] = [o.detach()] + [t.grad for t in leaves]
+    for got, want in zip(out["cuda"], out["torch"]):
+        _assert_close(got, want, torch.float32)
