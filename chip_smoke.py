@@ -13,6 +13,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    calls) and the card's bound: the paged kernels B4/B5 at the serving
    shapes, the flash-attention kernels B1-B3 at the training shapes
    (B 16, 12 heads of 64, S 1024, causal; the full variant for agreement);
+   the quantized variants of B4/B5 on int8 and fp8-e4m3 pools at the
+   serving shapes (bf16 q; windowed, G = 2 and f32-q cases for agreement);
 4. trains GPT-2 125M at full width and depth (bf16 activations, f32
    masters, seeded random weights, one fixed [16, 1025] batch) through the
    port's ``run_gpt_bench``: the loss must stay finite and fall, and each
@@ -24,13 +26,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    that both kernels' launch counts equal 12 layers x the engine's calls;
 6. on the same weights runs one prefill plus decode steps with the CUDA
    kernels and with the plain backend and compares the logits;
-7. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+7. repeats 5 and 6 with ``quantization="int8"`` and ``"fp8"``: quantized
+   weights and pool, the quantized kernels launching 12 layers x calls and
+   the unquantized ones never, and the weights' and pool's device bytes
+   about half of the bf16 engine's;
+8. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
 after one comparison per kernel (a first check of a new kernel);
-``--profile`` adds a profiled train step and a profiled warm pass of the
-engine's requests (device time by kernel, device idle share, step times).
+``--profile`` adds a profiled train step and profiled warm passes of the
+bf16 and the int8 engine's requests (device time by kernel, device idle
+share, step times).
 """
 from __future__ import annotations
 
@@ -47,7 +54,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {"bfloat16": 989e12,        # dense bf16 tensor cores
-            "float32": 67e12}          # f32 outside the tensor cores
+            "float32": 67e12,          # f32 outside the tensor cores
+            "int8": 1979e12, "fp8": 1979e12}  # dense int8 / fp8 tensor cores
+QUANT_KINDS = ("int8", "fp8")
 # |kernel - plain| <= atol + rtol * |plain| on the same inputs: f32 differs
 # only by the online vs one-shot softmax order; bf16 adds the kernel's bf16
 # rounding of exp2 and of the probabilities and one output rounding, so
@@ -55,7 +64,11 @@ PEAK_OPS = {"bfloat16": 989e12,        # dense bf16 tensor cores
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 1.6e-2)}
 # max |logits(cuda kernels) - logits(plain backend)| on the bf16 model:
 # bf16 attention outputs differ by a few ulps per layer over 12 layers
+# (the quantized models too: both backends read the same pool bytes)
 LOGIT_TOL = 0.1
+# a quantized engine's weights and pool against the bf16 engine's: 1-byte
+# data plus f32 scales (pool: hd + 4 bytes a row against 2 hd)
+BYTES_RATIO_MAX = 0.55
 # training, CUDA kernels vs plain backend on the bf16 model: the two
 # attentions differ by bf16 ulps (2^-8 relative rounding) at B1's online
 # softmax; through 12 layers forward and back those perturbations stay a
@@ -172,20 +185,25 @@ def prefill_case(torch, dtype, starts):
                 starts=starts)
 
 
-def decode_bound(x, dtype_name, esize):
+def decode_bound(x, dtype_name, esize, kv_row=None):
+    """kv_row: bytes of one (token, head) row of K or V, hd * esize
+    unquantized, hd + 4 (1-byte data and an f32 scale) quantized; ops at
+    the peak rate of ``dtype_name``, the pool's type."""
     B, H, hd = x["q"].shape
     tokens = sum(x["lengths"])
-    nbytes = (tokens * H * hd * 2 * esize + 2 * B * H * hd * esize
+    kv_row = kv_row or hd * esize
+    nbytes = (tokens * H * kv_row * 2 + 2 * B * H * hd * esize
               + x["tables"].numel() * 4 + B * 4)
     ops = 4 * hd * H * tokens
     return bound(nbytes, ops, dtype_name)
 
 
-def prefill_bound(x, dtype_name, esize):
+def prefill_bound(x, dtype_name, esize, kv_row=None):
     B, S, H, hd = x["q"].shape
     pairs = sum((s + i + 1) for s in x["starts"] for i in range(S)) * H
     ctx = sum(s + S for s in x["starts"])
-    nbytes = (ctx * H * hd * 2 * esize + 2 * B * S * H * hd * esize
+    kv_row = kv_row or hd * esize
+    nbytes = (ctx * H * kv_row * 2 + 2 * B * S * H * hd * esize
               + x["tables"].numel() * 4 + B * S * 4)
     ops = 4 * hd * pairs
     return bound(nbytes, ops, dtype_name)
@@ -202,15 +220,26 @@ def dense_sdpa_inputs(torch, q4, k, v, tables, pos):
     mask t <= pos; gathered once here, outside the timed call."""
     from ray_tpu_torch.ops.kv_cache import gather_kv
 
-    keys, values = gather_kv(k, v, tables)           # [B, T, H, hd]
-    T = keys.shape[1]
+    # a quantized pool gathers dequantized (f32), then takes q's dtype
+    keys, values = (t.to(q4.dtype) for t in gather_kv(k, v, tables))
+    T = keys.shape[1]                                # keys [B, T, H, hd]
     mask = (torch.arange(T, device="cuda")[None, None, :]
             <= pos.long()[:, :, None])[:, None]      # [B, 1, S, T]
     return (q4.transpose(1, 2).contiguous(), keys.transpose(1, 2).contiguous(),
             values.transpose(1, 2).contiguous(), mask)
 
 
-def kernels_phase(torch, quick: bool) -> dict:
+def quantize_pool(k, v, kind):
+    from ray_tpu_torch.ops.quantization import QuantizedKV, quantize_kv
+
+    return tuple(QuantizedKV(*quantize_kv(x, kind)) for x in (k, v))
+
+
+def kernels_phase(torch, quick: bool, kind=None) -> dict:
+    """B4/B5 against their plain versions at the serving shapes, bf16 and
+    f32 q, timed (with ``kind``: their quantized variants on a pool of
+    that kind quantized from the same random K/V, timed with bf16 q, the
+    serving dtype); a window and G = 2 (6 kv heads) for agreement only."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import paged_attention as pa
@@ -220,56 +249,81 @@ def kernels_phase(torch, quick: bool) -> dict:
     )
 
     timer = None if quick else Timer(torch)
+    suffix = f"_{kind}" if kind else ""
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[1]
         esize = torch.empty(0, dtype=dtype).element_size()
+        timed = timer is not None and (kind is None or dtype == torch.bfloat16)
+        # the bound's pool row (quantized: 1-byte data and an f32 scale) and
+        # the peak rate of the pool's type
+        kv_row = DECODE["hd"] + 4 if kind else None
+        ops_type = kind or name
 
+        def pool(x, heads=DECODE["H"]):
+            k, v = (t[:, :, :heads].contiguous() for t in (x["k"], x["v"]))
+            return quantize_pool(k, v, kind) if kind else (k, v)
+
+        kname = "paged_decode" + suffix
         x = decode_case(torch, dtype)
-        args = (x["q"], x["k"], x["v"], x["tables"], x["pos"])
+        args = (x["q"], *pool(x), x["tables"], x["pos"])
         got = pa.paged_attention_cuda(*args)
         torch.cuda.synchronize()
-        err = compare("paged_decode", got, paged_attention(*args), name)
-        row = {"max_abs_err": err}
-        if timer is not None:
+        row = {"max_abs_err": compare(kname, got, paged_attention(*args),
+                                      name)}
+        if timed:
             sq, sk, sv, mask = dense_sdpa_inputs(
-                torch, x["q"][:, None], x["k"], x["v"], x["tables"],
+                torch, x["q"][:, None], *args[1:3], x["tables"],
                 x["pos"][:, None])
             row["ms"] = timer(lambda: pa.paged_attention_cuda(*args))
             row["plain_ms"] = timer(lambda: paged_attention(*args))
             row["library_ms"] = timer(
-                lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask))
-            row["bound_ms"], row["bound_by"] = decode_bound(x, name, esize)
-            log(f"paged_decode {name}: {json.dumps(row)}")
-        rows[("paged_decode", name)] = row
+                lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                       attn_mask=mask))
+            row["bound_ms"], row["bound_by"] = decode_bound(
+                x, ops_type, esize, kv_row)
+            log(f"{kname} {name}: {json.dumps(row)}")
+            del sq, sk, sv, mask
+        rows[(kname, name)] = row
+        args = (x["q"], *pool(x, DECODE["H"] // 2), x["tables"], x["pos"])
+        compare(f"{kname} G=2", pa.paged_attention_cuda(*args),
+                paged_attention(*args), name)
+        del x, args
 
+        kname = "paged_prefill" + suffix
         for label, starts in (("fresh", [0, 0, 0, 0]),
                               ("ragged", [37, 100, 256, 500])):
             x = prefill_case(torch, dtype, starts)
-            args = (x["q"], x["k"], x["v"], x["tables"], x["pos"])
+            args = (x["q"], *pool(x), x["tables"], x["pos"])
             got = pa.paged_prefill_attention_cuda(*args)
             torch.cuda.synchronize()
-            err = compare(f"paged_prefill {label}", got,
-                          paged_prefill_attention(*args), name)
-            row = {"max_abs_err": err}
-            if timer is not None:
+            row = {"max_abs_err": compare(
+                f"{kname} {label}", got, paged_prefill_attention(*args),
+                name)}
+            if timed:
                 sq, sk, sv, mask = dense_sdpa_inputs(
-                    torch, x["q"], x["k"], x["v"], x["tables"], x["pos"])
-                row["ms"] = timer(lambda: pa.paged_prefill_attention_cuda(*args))
+                    torch, x["q"], *args[1:3], x["tables"], x["pos"])
+                row["ms"] = timer(
+                    lambda: pa.paged_prefill_attention_cuda(*args))
                 row["plain_ms"] = timer(lambda: paged_prefill_attention(*args))
                 row["library_ms"] = timer(
                     lambda: F.scaled_dot_product_attention(
                         sq, sk, sv, attn_mask=mask))
-                row["bound_ms"], row["bound_by"] = prefill_bound(x, name, esize)
-                log(f"paged_prefill {name} {label}: {json.dumps(row)}")
-            rows[("paged_prefill", name, label)] = row
-        # windowed variant, checked for agreement only (no engine path)
-        x = prefill_case(torch, dtype, [37, 100, 256, 500])
-        args = (x["q"], x["k"], x["v"], x["tables"], x["pos"])
-        got = pa.paged_prefill_attention_cuda(*args, window=200)
-        torch.cuda.synchronize()
-        compare("paged_prefill window=200", got,
-                paged_prefill_attention(*args, window=200), name)
+                row["bound_ms"], row["bound_by"] = prefill_bound(
+                    x, ops_type, esize, kv_row)
+                log(f"{kname} {name} {label}: {json.dumps(row)}")
+                del sq, sk, sv, mask
+            rows[(kname, name, label)] = row
+        # on the ragged case: a window (no engine path), and G = 2
+        for heads in (DECODE["H"], DECODE["H"] // 2):
+            args = (x["q"], *pool(x, heads), x["tables"], x["pos"])
+            g = DECODE["H"] // heads
+            compare(f"{kname} G={g} window=200",
+                    pa.paged_prefill_attention_cuda(*args, window=200),
+                    paged_prefill_attention(*args, window=200), name)
+        compare(f"{kname} G=2", pa.paged_prefill_attention_cuda(*args),
+                paged_prefill_attention(*args), name)
+        del x, args
     return rows
 
 
@@ -528,7 +582,19 @@ def serve(torch, engine, prompts, params) -> dict:
             "seconds": time.perf_counter() - t0, "steps": steps}
 
 
-def engine_phase(torch) -> dict:
+def weight_bytes(model) -> int:
+    """Device bytes of a model's weights (quantized: data and scales)."""
+    from ray_tpu_torch.ops.quantization import QuantizedTensor
+
+    return sum(w.nbytes() if isinstance(w, QuantizedTensor)
+               else w.numel() * w.element_size()
+               for w in model.weights().values())
+
+
+def engine_phase(torch, quant=None) -> dict:
+    """The engine workload (``quant``: None for bf16, or a quantization
+    kind); each path's kernels must launch 12 layers x its calls, every
+    other paged kernel never."""
     import numpy as np
 
     from ray_tpu_torch.models.gpt import GPTConfig
@@ -538,10 +604,14 @@ def engine_phase(torch) -> dict:
     cfg = GPTConfig.gpt2_small()
     engine = LLMEngine(
         EngineConfig(model_config=cfg, block_size=16, num_blocks=1024,
-                     max_batch_size=8, prefill_chunk_tokens=256, seed=0),
+                     max_batch_size=8, prefill_chunk_tokens=256, seed=0,
+                     quantization=quant),
         auto_step=False,
     )
     assert engine.device.type == "cuda", engine.device
+    assert engine.executor.quantization == quant
+    tag = f"engine[{quant or 'bf16'}]"
+    suffix = f"_{quant}" if quant else ""
     rng = np.random.default_rng(0)
     lengths = [30, 64, 120, 200, 333, 512, 700, 900]
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
@@ -568,22 +638,26 @@ def engine_phase(torch) -> dict:
         raise AssertionError(
             f"pool not whole: {c.free_blocks} free of {c.cfg.usable_blocks}, "
             f"{c.reserved_blocks} reserved")
-    want = {"paged_decode": cfg.n_layer * decode_steps,
-            "paged_prefill": cfg.n_layer * prefill_calls}
+    want = dict.fromkeys(launches, 0)
+    want["paged_decode" + suffix] = cfg.n_layer * decode_steps
+    want["paged_prefill" + suffix] = cfg.n_layer * prefill_calls
     ntok = sum(map(len, outs))
     steps = run["steps"]
-    log(f"engine: {len(outs)} requests, {ntok} tokens in "
+    nbytes = {"weights": weight_bytes(engine.executor.model),
+              "pool": c.nbytes()}
+    log(f"{tag}: {len(outs)} requests, {ntok} tokens in "
         f"{run['seconds']:.3f} s = {ntok / run['seconds']:.1f} tokens/s "
         f"(first pass {warm['seconds']:.3f} s); {prefill_calls} prefill "
         f"calls, mean {1e3 * statistics.mean(steps['prefill']):.2f} ms; "
         f"{decode_steps} decode steps, mean "
-        f"{1e3 * statistics.mean(steps['decode']):.2f} ms; "
-        f"launches {launches} (expected {want})")
-    if launches != want or min(launches.values()) == 0:
+        f"{1e3 * statistics.mean(steps['decode']):.2f} ms; device bytes "
+        f"{nbytes}; launches {launches} (expected {want})")
+    if launches != want or min(prefill_calls, decode_steps) == 0:
         raise AssertionError(f"launch counts {launches} != {want}")
-    log(f"first tokens: {[o[:4] for o in outs]}")
+    log(f"{tag} first tokens: {[o[:4] for o in outs]}")
     return {"engine": engine, "launches": launches, "prompts": prompts,
-            "params": params}
+            "params": params, "bytes": nbytes,
+            "tokens_per_s": ntok / run["seconds"]}
 
 
 def profile_phase(torch, eng) -> None:
@@ -600,7 +674,9 @@ def profile_phase(torch, eng) -> None:
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = run["seconds"] * 1e3
-    log(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+    quant = eng["engine"].executor.quantization
+    log(f"profile [{quant or 'bf16'}]: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms "
         f"(idle share {1 - busy_ms / wall_ms:.3f}); steps "
         + ", ".join(f"{k} n={len(v)} mean {1e3 * statistics.mean(v):.2f} ms"
                     for k, v in run["steps"].items()))
@@ -635,7 +711,7 @@ def backends_phase(torch, engine) -> float:
     for backend in ("cuda", "torch"):
         m = GPT(dataclasses.replace(base.cfg, attention_backend=backend),
                 base.device)
-        m.load_state_dict(base.state_dict())
+        m.load_weights(base.weights())
         models[backend] = m
     cfg = base.cfg
     B, S, bs, steps = 2, 320, 16, 4
@@ -651,7 +727,7 @@ def backends_phase(torch, engine) -> float:
         cache = PagedKVCache(KVCacheConfig(
             n_layer=cfg.n_layer, n_kv_head=cfg.n_head, head_dim=cfg.head_dim,
             num_blocks=B * nb + 1, block_size=bs, dtype=cfg.dtype,
-            device="cuda"))
+            device="cuda", quantization=cfg.quantization))
         out, _, _ = m.prefill(cache.k, cache.v, tokens, lengths, tables)
         seq = [out]
         nxt = out.argmax(-1).to(torch.int32)
@@ -666,8 +742,9 @@ def backends_phase(torch, engine) -> float:
         raise AssertionError("non-finite logits from the CUDA path")
     diff = (logits["cuda"] - logits["torch"]).abs().max().item()
     scale = logits["torch"].abs().max().item()
-    log(f"logits cuda vs torch backend: max_abs_diff {diff:.3e} "
-        f"(tol {LOGIT_TOL}; max |logit| {scale:.3f})")
+    log(f"logits cuda vs torch backend [{cfg.quantization or 'bf16'}]: "
+        f"max_abs_diff {diff:.3e} (tol {LOGIT_TOL}; max |logit| "
+        f"{scale:.3f})")
     if not diff <= LOGIT_TOL:
         raise AssertionError(f"backends disagree: {diff}")
     return diff
@@ -709,6 +786,8 @@ def main() -> int:
         f"({', '.join(_build.sources())})")
 
     rows = kernels_phase(torch, args.quick)
+    for kind in QUANT_KINDS:
+        rows.update(kernels_phase(torch, args.quick, kind))
     frows = flash_phase(torch, args.quick)
     if args.quick:
         log(card)
@@ -716,32 +795,51 @@ def main() -> int:
     train = train_phase(torch)
     loss_phase(torch, Timer(torch))
     train_backends_phase(torch)
+    # the paged kernels' launches, each from the engine whose path runs it
     eng = engine_phase(torch)
+    launches = {n: eng["launches"][n] for n in ("paged_decode", "paged_prefill")}
+    base_bytes = eng["bytes"]
     backends_phase(torch, eng["engine"])
     if args.profile:
         profile_train(torch)
         profile_phase(torch, eng)
+    for kind in QUANT_KINDS:
+        del eng  # one engine's weights and pool at a time
+        torch.cuda.empty_cache()
+        eng = engine_phase(torch, kind)
+        for base in ("paged_decode", "paged_prefill"):
+            launches[f"{base}_{kind}"] = eng["launches"][f"{base}_{kind}"]
+        ratio = {n: eng["bytes"][n] / base_bytes[n] for n in base_bytes}
+        log(f"engine[{kind}] device bytes / bf16 engine's: "
+            f"{ {n: round(r, 4) for n, r in ratio.items()} } "
+            f"(max {BYTES_RATIO_MAX})")
+        if max(ratio.values()) > BYTES_RATIO_MAX:
+            raise AssertionError(f"{kind} engine bytes not halved: {ratio}")
+        backends_phase(torch, eng["engine"])
+        if args.profile and kind == "int8":
+            profile_phase(torch, eng)
 
     kernels = []
-    for name, replaces, key in (
-        ("paged_decode", "ray_tpu/ops/paged_attention.py:104",
-         ("paged_decode", "bfloat16")),
-        ("paged_prefill", "ray_tpu/ops/paged_attention.py:322",
-         ("paged_prefill", "bfloat16", "fresh")),
-    ):
-        r = rows[key]
-        f32 = rows[(key[0], "float32") + key[2:]]
+    paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")
+             for suffix in ("", "_int8", "_fp8")]
+    for name, base in paged:
+        # prefill: the fresh case, the ragged one beside it
+        case = ("fresh",) if base == "paged_prefill" else ()
+        r = rows[(name, "bfloat16") + case]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"ray_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces,
-            "launches": eng["launches"][name],
+            "source": f"ray_tpu_torch/csrc/{base}.cu",
+            "replaces": "ray_tpu/ops/paged_attention.py:"
+                        + ("104" if base == "paged_decode" else "322"),
+            "launches": launches[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            "f32": f32,
+            "f32": rows[(name, "float32") + case],
         })
+        if case:
+            kernels[-1]["ragged"] = rows[(name, "bfloat16", "ragged")]
     for name, replaces, source in (
         ("flash_fwd", "ray_tpu/ops/attention.py:129", "flash_fwd.cu"),
         ("flash_bwd_dkv", "ray_tpu/ops/attention.py:288", "flash_bwd.cu"),

@@ -17,12 +17,24 @@
 //   4. acc[r, :] = acc[r, :] * alpha[r] + sum_t p[r, t] * v[t, :].
 // bf16 inputs round (s - m) and exp2 to bf16 and f32 inputs stay f32, as
 // the TPU kernels do; max, sum and accumulator are f32 either way.
+//
+// Three types are separate: KV, the pool's storage type (f32, bf16, or a
+// quantized int8 / fp8-e4m3); P, the type the softmax rounds through; O,
+// the output type (q's). Unquantized, all three are q's type. Quantized
+// (the TPU kernels' `quantized=True` branch), K/V arrive as 1-byte tiles
+// with one f32 scale per (slot, kv head), staged beside them, and are
+// dequantized in registers, k = float(data) * scale, one f32 multiply as
+// in JAX; the TPU branch runs its softmax on an f32 q, so P is f32 and the
+// bf16 exp2 rule never fires.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace paged {
 
@@ -30,13 +42,18 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int n = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int n = 8; };
+// elements of T in one 16-byte copy
+template <typename T> struct Vec { static constexpr int n = 16 / sizeof(T); };
+// a 1-byte pool type is quantized: it carries a scale plane
+template <typename T> constexpr bool kQuantized = sizeof(T) == 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);  // exact: every e4m3 value is an f32
 }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
@@ -61,6 +78,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// f32 words of a tile's state: q, acc, scores, m, l, alpha, and the scale
+// ring [2 stages][K, V][bs] (used by quantized pools only)
+__host__ __device__ inline size_t state_floats(int R, int hd, int bs) {
+  size_t nf = (size_t)2 * R * hd + (size_t)R * bs + 3 * R + 4 * bs;
+  return nf + (nf & 1);  // keeps the long long offsets 8-byte aligned
+}
+
 // Shared-memory bytes for a tile of R rows. The K/V ring comes first (its
 // rows are padded by one 16-byte vector, so the 16-byte reads of the score
 // phase spread over all banks); f32 state and int positions follow.
@@ -68,14 +92,13 @@ __host__ __device__ inline size_t smem_bytes(int R, int hd, int bs,
                                              int tsize) {
   const int vec = 16 / tsize;
   size_t ring = (size_t)4 * bs * (hd + vec) * tsize;
-  size_t nf = (size_t)2 * R * hd + (size_t)R * bs + 3 * R;
-  nf += nf & 1;  // keeps the long long offsets 8-byte aligned
   size_t extra = (size_t)R * (sizeof(int) + sizeof(long long));
-  return ring + nf * sizeof(float) + extra;
+  return ring + state_floats(R, hd, bs) * sizeof(float) + extra;
 }
 
 template <typename T> struct Tile {
   T* ring;          // [2 stages][K, V][bs][hd + vec]
+  float* sring;     // [2 stages][K, V][bs] scales (quantized pools)
   float* q;         // [R][hd] pre-scaled queries
   float* acc;       // [R][hd]
   float* sc;        // [R][bs] scores, then probabilities
@@ -97,9 +120,8 @@ template <typename T> struct Tile {
     t.m = t.sc + R * bs;
     t.l = t.m + R;
     t.alpha = t.l + R;
-    size_t nf = (size_t)2 * R * hd + (size_t)R * bs + 3 * R;
-    nf += nf & 1;
-    t.orow = reinterpret_cast<long long*>(t.q + nf);
+    t.sring = t.alpha + R;
+    t.orow = reinterpret_cast<long long*>(t.q + state_floats(R, hd, bs));
     t.pos = reinterpret_cast<int*>(t.orow + R);
     return t;
   }
@@ -107,14 +129,20 @@ template <typename T> struct Tile {
 
 // Walk kv blocks i_lo..i_hi (inclusive) of one sequence's table for one kv
 // head and write the R rows' outputs. The caller has filled t.q, t.pos and
-// t.orow and synchronised. window <= 0 means no sliding window.
-template <typename T>
-__device__ void attend_tile(const T* __restrict__ kpool,
-                            const T* __restrict__ vpool,
+// t.orow and synchronised. window <= 0 means no sliding window. kscale /
+// vscale are the pool's [num_blocks, bs, Hkv] f32 planes when KV is
+// quantized, unused otherwise.
+template <typename KV, typename P, typename O>
+__device__ void attend_tile(const KV* __restrict__ kpool,
+                            const KV* __restrict__ vpool,
+                            const float* __restrict__ kscale,
+                            const float* __restrict__ vscale,
                             const int* __restrict__ table, int i_lo, int i_hi,
                             int R, int hd, int bs, int Hkv, int kvh,
-                            int window, Tile<T>& t, T* __restrict__ out) {
+                            int window, Tile<KV>& t, O* __restrict__ out) {
+  using T = KV;
   constexpr int vec = Vec<T>::n;
+  constexpr bool quant = kQuantized<KV>;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -137,9 +165,9 @@ __device__ void attend_tile(const T* __restrict__ kpool,
   const int sub = tid % tpp;
 
   auto load = [&](int stage, int i) {
-    const size_t off = ((size_t)table[i] * bs * Hkv + kvh) * hd;
-    const T* kb = kpool + off;
-    const T* vb = vpool + off;
+    const size_t row0 = (size_t)table[i] * bs * Hkv + kvh;  // (blk, 0, kvh)
+    const T* kb = kpool + row0 * hd;
+    const T* vb = vpool + row0 * hd;
     T* ks = t.ring + (size_t)stage * 2 * bs * ld;
     T* vs = ks + (size_t)bs * ld;
     const int vpr = hd / vec;
@@ -147,6 +175,16 @@ __device__ void attend_tile(const T* __restrict__ kpool,
       const int tok = x / vpr, c = (x % vpr) * vec;
       __pipeline_memcpy_async(ks + tok * ld + c, kb + tok * tok_stride + c, 16);
       __pipeline_memcpy_async(vs + tok * ld + c, vb + tok * tok_stride + c, 16);
+    }
+    if constexpr (quant) {
+      // one head's bs scales lie Hkv floats apart: 4-byte copies
+      float* kss = t.sring + (size_t)stage * 2 * bs;
+      for (int tok = tid; tok < bs; tok += kThreads) {
+        __pipeline_memcpy_async(kss + tok, kscale + row0 + (size_t)tok * Hkv,
+                                4);
+        __pipeline_memcpy_async(kss + bs + tok,
+                                vscale + row0 + (size_t)tok * Hkv, 4);
+      }
     }
     __pipeline_commit();
   };
@@ -164,6 +202,8 @@ __device__ void attend_tile(const T* __restrict__ kpool,
     __syncthreads();
     const T* ks = t.ring + (size_t)stage * 2 * bs * ld;
     const T* vs = ks + (size_t)bs * ld;
+    const float* kss = t.sring + (size_t)stage * 2 * bs;  // quantized only
+    const float* vss = kss + bs;
 
     // 2. scores
     for (int base = 0; base < npairs; base += groups) {
@@ -173,11 +213,18 @@ __device__ void attend_tile(const T* __restrict__ kpool,
         const int r = p / bs, tok = p % bs;
         const float* qr = t.q + r * hd;
         const T* kr = ks + tok * ld;
+        float ksc = 1.f;
+        if constexpr (quant) ksc = kss[tok];
         for (int d = sub * vec; d < hd; d += tpp * vec) {
           const uint4 raw = *reinterpret_cast<const uint4*>(kr + d);
           const T* kv = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-          for (int e = 0; e < vec; ++e) s += qr[d + e] * to_f32(kv[e]);
+          for (int e = 0; e < vec; ++e) {
+            if constexpr (quant)
+              s += qr[d + e] * (to_f32(kv[e]) * ksc);
+            else
+              s += qr[d + e] * to_f32(kv[e]);
+          }
         }
       }
       for (int o = tpp >> 1; o > 0; o >>= 1)
@@ -202,7 +249,7 @@ __device__ void attend_tile(const T* __restrict__ kpool,
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
       for (int k = lane; k < bs; k += 32) {
-        const float p = round_t<T>(exp2f(round_t<T>(sr[k] - m_new)));
+        const float p = round_t<P>(exp2f(round_t<P>(sr[k] - m_new)));
         sr[k] = p;
         sum += p;
       }
@@ -221,7 +268,12 @@ __device__ void attend_tile(const T* __restrict__ kpool,
       const int r = e / hd, d = e % hd;
       const float* pr = t.sc + r * bs;
       float a = t.acc[e] * t.alpha[r];
-      for (int k = 0; k < bs; ++k) a += pr[k] * to_f32(vs[k * ld + d]);
+      for (int k = 0; k < bs; ++k) {
+        if constexpr (quant)
+          a += pr[k] * (to_f32(vs[k * ld + d]) * vss[k]);
+        else
+          a += pr[k] * to_f32(vs[k * ld + d]);
+      }
       t.acc[e] = a;
     }
     __syncthreads();  // the next load reuses this stage's buffers
@@ -231,7 +283,7 @@ __device__ void attend_tile(const T* __restrict__ kpool,
     const int r = e / hd, d = e % hd;
     if (t.orow[r] < 0) continue;
     const float l = t.l[r];
-    out[t.orow[r] + d] = from_f32<T>(t.acc[e] / (l == 0.f ? 1.f : l));
+    out[t.orow[r] + d] = from_f32<O>(t.acc[e] / (l == 0.f ? 1.f : l));
   }
 }
 

@@ -23,25 +23,36 @@
 // can attend cost nothing. Rows past the chunk (tile padding) carry
 // position 0 and are never written, as the TPU wrapper's padded rows are
 // sliced off.
+//
+// Quantized variant (the TPU kernel's `quantized=True` branch), as in
+// paged_decode.cu: int8 / fp8-e4m3 tiles and their per-(slot, head) f32
+// scales ride the same ring and are dequantized in registers; q is
+// pre-scaled in its own type, the softmax runs in f32, the output is q's
+// type.
 #include "paged_common.cuh"
 
 namespace {
 
 constexpr int kRows = 32;
 
-template <typename T>
+// Q: q and output type; KV: pool storage type (Q, or int8 / fp8 quantized)
+template <typename Q, typename KV>
 __global__ void __launch_bounds__(paged::kThreads)
-    paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                         const T* __restrict__ vpool,
+    paged_prefill_kernel(const Q* __restrict__ q, const KV* __restrict__ kpool,
+                         const KV* __restrict__ vpool,
+                         const float* __restrict__ kscale,
+                         const float* __restrict__ vscale,
                          const int* __restrict__ tables,
                          const int* __restrict__ positions,
-                         T* __restrict__ out, int S, int Hq, int Hkv, int hd,
+                         Q* __restrict__ out, int S, int Hq, int Hkv, int hd,
                          int bs, int NB, float qscale, int window) {
+  // softmax rounding: q's type, f32 under a quantized pool
+  using P = std::conditional_t<paged::kQuantized<KV>, float, Q>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int j = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
-  paged::Tile<T> t = paged::Tile<T>::carve(smem, kRows, hd, bs);
-  const float c = paged::round_t<T>(qscale);
+  paged::Tile<KV> t = paged::Tile<KV>::carve(smem, kRows, hd, bs);
+  const float c = paged::round_t<Q>(qscale);
   // tile row r is (query, group) row rho = j * kRows + r: query rho / G,
   // query head kvh * G + rho % G
   for (int e = threadIdx.x; e < kRows * hd; e += paged::kThreads) {
@@ -51,7 +62,7 @@ __global__ void __launch_bounds__(paged::kThreads)
     if (s < S)
       x = paged::to_f32(q[(((size_t)b * S + s) * Hq + (size_t)kvh * G + g) *
                             hd + d]);
-    t.q[e] = paged::round_t<T>(x * c);
+    t.q[e] = paged::round_t<Q>(x * c);
   }
   for (int r = threadIdx.x; r < kRows; r += paged::kThreads) {
     const int rho = j * kRows + r, s = rho / G, g = rho % G;
@@ -70,50 +81,78 @@ __global__ void __launch_bounds__(paged::kThreads)
   const int i_hi = min(qmax / bs, NB - 1);
   int i_lo = 0;
   if (window > 0 && qmin - window + 1 > 0) i_lo = (qmin - window + 1) / bs;
-  paged::attend_tile<T>(kpool, vpool, tables + (size_t)b * NB, i_lo, i_hi,
-                        kRows, hd, bs, Hkv, kvh, window, t, out);
+  paged::attend_tile<KV, P, Q>(kpool, vpool, kscale, vscale,
+                               tables + (size_t)b * NB, i_lo, i_hi, kRows, hd,
+                               bs, Hkv, kvh, window, t, out);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* tables,
-           const int* positions, void* out, int B, int S, int Hq, int Hkv,
-           int hd, int bs, int NB, float qscale, int window,
-           cudaStream_t stream) {
-  const size_t bytes = paged::smem_bytes(kRows, hd, bs, sizeof(T));
+template <typename Q, typename KV>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, const int* tables, const int* positions,
+           void* out, int B, int S, int Hq, int Hkv, int hd, int bs, int NB,
+           float qscale, int window, cudaStream_t stream) {
+  const size_t bytes = paged::smem_bytes(kRows, hd, bs, sizeof(KV));
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_prefill_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        paged_prefill_kernel<Q, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const int rows = S * (Hq / Hkv);
   dim3 grid((rows + kRows - 1) / kRows, Hkv, B);
-  paged_prefill_kernel<T><<<grid, paged::kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, positions, static_cast<T*>(out), S, Hq,
-      Hkv, hd, bs, NB, qscale, window);
+  paged_prefill_kernel<Q, KV><<<grid, paged::kThreads, bytes, stream>>>(
+      static_cast<const Q*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ks, vs, tables, positions,
+      static_cast<Q*>(out), S, Hq, Hkv, hd, bs, NB, qscale, window);
   return (int)cudaGetLastError();
+}
+
+template <typename Q>
+int launch_kv(int kvtype, const void* q, const void* k, const void* v,
+              const float* ks, const float* vs, const int* tables,
+              const int* positions, void* out, int B, int S, int Hq, int Hkv,
+              int hd, int bs, int NB, float qscale, int window,
+              cudaStream_t s) {
+  switch (kvtype) {
+    case 0:
+      return launch<Q, Q>(q, k, v, ks, vs, tables, positions, out, B, S, Hq,
+                          Hkv, hd, bs, NB, qscale, window, s);
+    case 1:
+      return launch<Q, int8_t>(q, k, v, ks, vs, tables, positions, out, B, S,
+                               Hq, Hkv, hd, bs, NB, qscale, window, s);
+    case 2:
+      return launch<Q, __nv_fp8_e4m3>(q, k, v, ks, vs, tables, positions,
+                                      out, B, S, Hq, Hkv, hd, bs, NB, qscale,
+                                      window, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; window <= 0 = none. Returns a
-// cudaError_t (0 = launched).
+// dtype (q, out): 0 = float32, 1 = bfloat16. kvtype (pool): 0 = q's type,
+// 1 = int8, 2 = fp8-e4m3; a quantized pool needs its two scale planes and
+// hd % 16 == 0. window <= 0 = none. Returns a cudaError_t (0 = launched).
 extern "C" int paged_prefill(const void* q, const void* k, const void* v,
+                             const float* kscale, const float* vscale,
                              const int* tables, const int* positions,
                              void* out, int B, int S, int Hq, int Hkv, int hd,
                              int bs, int NB, float qscale, int window,
-                             int dtype, void* stream) {
+                             int dtype, int kvtype, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd % 8 || hd > 256 ||
       bs <= 0 || NB <= 0)
     return (int)cudaErrorInvalidValue;
+  if (kvtype != 0 && (hd % 16 || kscale == nullptr || vscale == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, tables, positions, out, B, S, Hq, Hkv, hd,
-                         bs, NB, qscale, window, s);
+    return launch_kv<float>(kvtype, q, k, v, kscale, vscale, tables,
+                            positions, out, B, S, Hq, Hkv, hd, bs, NB, qscale,
+                            window, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, tables, positions, out, B, S, Hq,
-                                 Hkv, hd, bs, NB, qscale, window, s);
+    return launch_kv<__nv_bfloat16>(kvtype, q, k, v, kscale, vscale, tables,
+                                    positions, out, B, S, Hq, Hkv, hd, bs, NB,
+                                    qscale, window, s);
   return (int)cudaErrorInvalidValue;
 }
 

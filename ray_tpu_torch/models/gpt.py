@@ -11,6 +11,11 @@ Weights, two policies:
   masters in f32.
 - training (``GPT(cfg, train=True)``): every parameter is an f32 master
   that requires grad, cast to ``cfg.dtype`` at each use, as in JAX.
+- quantized serving (``cfg.quantization`` "int8" | "fp8"): the matmul
+  weights and embeddings are ``QuantizedTensor``s (per-channel, axes of
+  ``gpt_quant_axes``), dequantized in ``cfg.dtype`` at each use as JAX's
+  ``astype`` does; biases and layer norms stay as above. No dequantized
+  copy is kept. Training ignores the knob.
 Activations run in ``cfg.dtype``; layer norm and softmax compute in f32;
 logits and the loss are f32. Linear weights keep the JAX layout
 ``[in, out]`` (``x @ w``).
@@ -39,6 +44,11 @@ from ray_tpu_torch.ops.paged_attention import (
     prefill_attention,
     resolve_backend,
 )
+from ray_tpu_torch.ops.quantization import (
+    QuantizedTensor,
+    quant_dtype,
+    resolve_quantization,
+)
 from ray_tpu_torch.ops.sampling import sample_tokens
 
 
@@ -61,6 +71,10 @@ class GPTConfig:
     attention_backend: str = "auto"
     remat: bool = False       # recompute each block in the backward
     fused_loss: bool = True   # chunked lm-head + CE, no [B, S, V] logits
+    # serving quantization (int8 | fp8 | None): quantized weights (see the
+    # module docstring) and a quantized paged pool; set by
+    # EngineConfig.quantization. Training paths ignore it.
+    quantization: str | None = None
 
     @staticmethod
     def gpt2_small() -> "GPTConfig":
@@ -87,12 +101,47 @@ def _linear(x, w, b):
     return out.reshape(*x.shape[:-1], w.shape[1])
 
 
+def _embed(table, idx, dtype):
+    """Rows ``idx`` of an embedding table in ``dtype``. A quantized table
+    gathers rows of data and scale, then dequantizes: the same values as
+    JAX's dequantize-then-gather."""
+    if isinstance(table, QuantizedTensor):
+        return table.rows(idx).to(dtype)
+    return table[idx].to(dtype)
+
+
 # parameters held in f32 whatever cfg.dtype is (see module docstring)
 _F32_PARAMS = ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias",
                "ln_f_scale", "ln_f_bias")
+_TOP = ("wte", "wpe", "ln_f_scale", "ln_f_bias")
+# amax reduction axis of each quantized weight: the matmul's contraction
+# axis (per-output-channel scales); wte and wpe reduce over embed, so one
+# scale per vocab row serves the gather and the tied lm head
+_QUANT_AXES = {"wte": 1, "wpe": 1, "qkv_w": 0, "proj_w": 0, "mlp_in_w": 0,
+               "mlp_out_w": 0}
+
+
+def gpt_quant_axes(cfg: GPTConfig) -> dict:
+    """Per-weight amax reduction axis for serving quantization, keyed by
+    state-dict name (``ops/quantization.quantize_params``); -1 keeps a
+    weight in full precision (biases, layer norms). The JAX tree stacks
+    the blocks, so its block axes are these plus one."""
+    axes = {name: _QUANT_AXES.get(name, -1) for name in _TOP}
+    for i in range(cfg.n_layer):
+        for name in Block.SHAPES:
+            axes[f"blocks.{i}.{name}"] = _QUANT_AXES.get(name, -1)
+    return axes
 
 
 def _param(shape, name: str, cfg: GPTConfig, device, train: bool):
+    kind = None if train else resolve_quantization(cfg.quantization)
+    if kind is not None and name in _QUANT_AXES:
+        axis = _QUANT_AXES[name]
+        return QuantizedTensor(
+            torch.empty(shape, dtype=quant_dtype(kind), device=device),
+            torch.empty([1 if i == axis else n for i, n in enumerate(shape)],
+                        dtype=torch.float32, device=device),
+        )
     dtype = torch.float32 if train or name in _F32_PARAMS else cfg.dtype
     return nn.Parameter(
         torch.empty(shape, dtype=dtype, device=device), requires_grad=train
@@ -143,6 +192,46 @@ class GPT(nn.Module):
         )
         self.ln_f_scale = param((D,), "ln_f_scale")
         self.ln_f_bias = param((D,), "ln_f_bias")
+
+    def weights(self) -> dict:
+        """Every weight by its state-dict name: a Parameter, or in a
+        quantized serving model a ``QuantizedTensor``."""
+        out = {name: getattr(self, name) for name in _TOP}
+        for i, bp in enumerate(self.blocks):
+            for name in Block.SHAPES:
+                out[f"blocks.{i}.{name}"] = getattr(bp, name)
+        return out
+
+    @torch.no_grad()
+    def load_weights(self, state: dict) -> "GPT":
+        """Copy ``state`` (``weights()``-named tensors or QuantizedTensors,
+        on any device) into this model's weights, casting full-precision
+        ones to their dtype; a quantized weight takes only a quantized
+        value of its own dtype and shapes."""
+        current = self.weights()
+        if set(state) != set(current):
+            raise KeyError(f"weights differ: missing "
+                           f"{sorted(set(current) - set(state))}, unexpected "
+                           f"{sorted(set(state) - set(current))}")
+        for name, value in state.items():
+            cur = current[name]
+            if isinstance(cur, QuantizedTensor):
+                if not (isinstance(value, QuantizedTensor)
+                        and value.dtype == cur.dtype
+                        and value.shape == cur.shape
+                        and value.scale.shape == cur.scale.shape):
+                    raise TypeError(
+                        f"{name}: expected a {cur.dtype} QuantizedTensor of "
+                        f"shape {tuple(cur.shape)}, got {type(value).__name__}"
+                        f" {getattr(value, 'dtype', None)}")
+                cur.data.copy_(value.data)
+                cur.scale.copy_(value.scale)
+            elif isinstance(value, QuantizedTensor):
+                raise TypeError(f"{name} is quantized but the model holds it "
+                                f"in {cur.dtype} (quantization=None)")
+            else:
+                cur.copy_(value)
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "GPT":
@@ -198,7 +287,8 @@ class GPT(nn.Module):
     def _logits(self, h):
         # tied lm head in f32: bf16 values are exact in f32, so this is the
         # JAX head's bf16 inputs with an f32 accumulator and f32 output
-        # (a training model's f32 master wte is cast to cfg.dtype first)
+        # (a training model's f32 master wte is cast to cfg.dtype first, a
+        # quantized wte dequantized in cfg.dtype)
         wte = self.wte.to(self.cfg.dtype)
         return torch.matmul(h.float(), wte.float().t())
 
@@ -222,7 +312,7 @@ class GPT(nn.Module):
         the final layer norm (everything but the lm head)."""
         S = tokens.shape[1]
         dt = self.cfg.dtype
-        x = self.wte[tokens.long()].to(dt) + self.wpe[:S].to(dt)
+        x = _embed(self.wte, tokens.long(), dt) + _embed(self.wpe, slice(S), dt)
         for bp in self.blocks:
             if self.cfg.remat:
                 x = checkpoint(self._block, x, bp, use_reentrant=False)
@@ -277,17 +367,18 @@ class GPT(nn.Module):
         cfg = self.cfg
         B, S = tokens.shape
         D = cfg.d_model
+        dt = cfg.dtype
         dev = self.device
         tokens = tokens.long()
         ar = torch.arange(S, dtype=torch.int32, device=dev)
         if start is None:
             pos = ar[None, :].expand(B, S)
-            x = self.wte[tokens] + self.wpe[:S]
+            x = _embed(self.wte, tokens, dt) + _embed(self.wpe, slice(S), dt)
         else:
             pos = start.to(torch.int32)[:, None] + ar[None, :]
             # padding columns can run past the table; they are masked
             emb_pos = pos.clamp(max=cfg.max_seq_len - 1).long()
-            x = self.wte[tokens] + self.wpe[emb_pos]
+            x = _embed(self.wte, tokens, dt) + _embed(self.wpe, emb_pos, dt)
         valid = ar[None, :] < lengths[:, None]
         backend = resolve_backend(cfg.attention_backend, dev)
         attn_pos = torch.where(valid, pos, 0).to(torch.int32).contiguous()
@@ -296,8 +387,12 @@ class GPT(nn.Module):
             k_layer, v_layer = cache_k[layer], cache_v[layer]
             q, kk, vv = self._attn_qkv(x, bp)
             scatter_kv(k_layer, v_layer, kk, vv, slots)
-            if start is None and backend == "torch":
-                # fresh prompt, plain path: attention over the chunk alone
+            if (start is None and backend == "torch"
+                    and cfg.quantization is None):
+                # fresh prompt, plain path: attention over the chunk alone.
+                # Not under quantization: that would attend the fresh,
+                # unquantized k/v, where every other path (and JAX) reads
+                # the quantized values back from the pool
                 attn = mha_reference(
                     q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
                     causal=True,
@@ -327,8 +422,10 @@ class GPT(nn.Module):
         cache_v)."""
         B = tokens.shape[0]
         D = self.cfg.d_model
+        dt = self.cfg.dtype
         backend = resolve_backend(self.cfg.attention_backend, self.device)
-        x = (self.wte[tokens.long()] + self.wpe[positions.long()])[:, None, :]
+        x = (_embed(self.wte, tokens.long(), dt)
+             + _embed(self.wpe, positions.long(), dt))[:, None, :]
         slots = write_slots(positions, block_tables, cache_k.shape[2])
         for layer, bp in enumerate(self.blocks):
             k_layer, v_layer = cache_k[layer], cache_v[layer]

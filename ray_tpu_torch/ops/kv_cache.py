@@ -9,6 +9,12 @@ so every op below is mask-free and shape-static.
 Unlike the JAX arrays, the pool is updated IN PLACE by ``write_kv`` (a
 ``[n_layer, ...]`` pool at GPT-2 width is far too large to copy per step).
 
+A quantized pool is a ``QuantizedKV`` pair per side (``ops/quantization.py``):
+``scatter_kv`` quantizes each incoming (token, kv head) row and lands its
+data and scale at the same (block, slot); ``gather_kv`` dequantizes the
+gathered context to f32, so the two attention functions below are also
+the plain versions of the quantized kernels.
+
 The attention functions here are the PLAIN versions of the two CUDA
 kernels (``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``): the CPU path
 of the dispatchers in ``ops/paged_attention.py``, and the yardstick the
@@ -23,6 +29,7 @@ import math
 import torch
 
 from ray_tpu_torch.ops.attention import NEG_INF
+from ray_tpu_torch.ops.quantization import QuantizedKV, quant_kind, quantize_kv
 
 
 def physical_slots(
@@ -77,21 +84,43 @@ def write_slots(
 
 
 def scatter_kv(k_layer, v_layer, k, v, slots):
-    """In-place scatter of k, v into one layer at ``write_slots`` indices."""
+    """In-place scatter of k, v into one layer at ``write_slots`` indices.
+    A ``QuantizedKV`` layer takes each row quantized (one scale per
+    (token, kv head)), its data and scale at the same (block, slot)."""
     blk, slot = slots
+    if isinstance(k_layer, QuantizedKV):
+        kind = quant_kind(k_layer.dtype)
+        for layer, x in ((k_layer, k), (v_layer, v)):
+            data, scale = quantize_kv(x, kind)
+            # moved as bytes: index_put is defined for uint8 everywhere
+            layer.data.view(torch.uint8)[blk, slot] = data.view(torch.uint8)
+            layer.scale[blk, slot] = scale
+        return k_layer, v_layer
     k_layer[blk, slot] = k.to(k_layer.dtype)
     v_layer[blk, slot] = v.to(v_layer.dtype)
     return k_layer, v_layer
+
+
+def _dequant_rows(layer: QuantizedKV, idx: torch.Tensor) -> torch.Tensor:
+    """Blocks ``idx`` of a quantized layer, dequantized to f32."""
+    data = layer.data.view(torch.uint8)[idx].view(layer.dtype)
+    return data.float() * layer.scale[idx][..., None]
 
 
 def gather_kv(
     k_layer: torch.Tensor, v_layer: torch.Tensor, block_tables: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each sequence's context in position order: [B, NB * bs, H_kv, hd].
-    Unallocated entries point at the garbage block; callers mask them."""
+    Unallocated entries point at the garbage block; callers mask them. A
+    quantized layer comes back dequantized to f32 (only the gathered
+    context, never the whole pool)."""
     B, NB = block_tables.shape
     _, bs, H, hd = k_layer.shape
     idx = block_tables.long()
+    if isinstance(k_layer, QuantizedKV):
+        keys = _dequant_rows(k_layer, idx).reshape(B, NB * bs, H, hd)
+        values = _dequant_rows(v_layer, idx).reshape(B, NB * bs, H, hd)
+        return keys, values
     keys = k_layer[idx].reshape(B, NB * bs, H, hd)
     values = v_layer[idx].reshape(B, NB * bs, H, hd)
     return keys, values
@@ -107,7 +136,8 @@ def paged_prefill_attention(
     scale: float | None = None,
     window: int | None = None,
 ) -> torch.Tensor:
-    """Multi-token attention over the pool (plain version of B5).
+    """Multi-token attention over the pool (plain version of B5 and of
+    its quantized variant).
 
     q: [B, S, H_q, hd], a chunk of queries whose own K/V are already
     written; positions [B, S] their true positions. Query row attends
@@ -140,7 +170,8 @@ def paged_attention(
     *,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Single-token decode attention over the pool (plain version of B4).
+    """Single-token decode attention over the pool (plain version of B4
+    and of its quantized variant).
 
     q: [B, H_q, hd], the current token's query after its own K/V were
     written (the mask ``t <= position`` includes self). Returns

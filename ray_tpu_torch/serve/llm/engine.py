@@ -17,6 +17,9 @@ inside the model step, keyed by (request seed, absolute position)
 (``ops/sampling.py``), so a request's stream is the same solo or batched
 and the same as the JAX engine's on the same weights.
 
+``EngineConfig.quantization`` ("int8" | "fp8") serves from quantized
+weights and a quantized pool (``ops/quantization.py``).
+
 What this slice leaves out of the JAX engine: prefix caching and
 copy-on-write, the host KV tier, preemption, speculative decoding,
 structured output, stop sequences, deadlines, admission-queue limits,
@@ -40,6 +43,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.exceptions import EngineDiedError, RequestCancelledError
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.ops.paged_attention import resolve_backend
+from ray_tpu_torch.ops.quantization import resolve_quantization
 from ray_tpu_torch.serve._shapes import pad_to_bucket, pow2_buckets
 from ray_tpu_torch.serve.llm.executor import SingleDeviceExecutor
 from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
@@ -93,6 +97,9 @@ class EngineConfig:
     prefill_chunk_tokens: int | None = None
     # None -> the model config's own; "auto" | "torch" | "cuda"
     attention_backend: str | None = None
+    # None -> the model config's own; "int8" | "fp8": quantized weights and
+    # paged pool on the quantized kernels
+    quantization: str | None = None
     # None -> cuda:0 (raises without a card); "cpu" only when asked
     device: Any = None
 
@@ -181,6 +188,14 @@ class LLMEngine:
         )
         if model_cfg.attention_backend != backend:
             model_cfg = dataclasses.replace(model_cfg, attention_backend=backend)
+        # EngineConfig wins, else the model config's own; normalized (a
+        # typo raises) and written back into the model config
+        quant = resolve_quantization(
+            cfg.quantization if cfg.quantization is not None
+            else model_cfg.quantization
+        )
+        if model_cfg.quantization != quant:
+            model_cfg = dataclasses.replace(model_cfg, quantization=quant)
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = device
@@ -193,6 +208,7 @@ class LLMEngine:
                 block_size=cfg.block_size,
                 dtype=model_cfg.dtype,
                 device=device,
+                quantization=quant,
             )
         )
         self.executor = SingleDeviceExecutor(

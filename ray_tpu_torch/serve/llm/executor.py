@@ -5,13 +5,23 @@ The engine stages every input as numpy; the executor owns the weights
 (a ``GPT`` module), the paged pool tensors (``cache.k`` / ``cache.v``,
 written in place by the model) and the one device-to-host copy per step,
 ``_host_tokens``: the step's sampled ids, O(batch) int32, never logits.
+
+Under ``model_cfg.quantization`` the executor quantizes the weights when
+it is built (JAX ``_maybe_quantize_params``), from f32 values: a state
+dict as given, or for random weights an f32 init from the seed, never the
+bf16 serving copy (its rounding would change the scales). Weights that
+arrive quantized (``convert.gpt_params_from_numpy`` of a quantized JAX
+tree) are not quantized again.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.gpt import GPT, gpt_init
+from ray_tpu_torch.models.gpt import GPT, gpt_init, gpt_quant_axes
+from ray_tpu_torch.ops.quantization import quantize_params
 
 
 def _host_tokens(tokens: torch.Tensor) -> np.ndarray:
@@ -28,13 +38,20 @@ class SingleDeviceExecutor:
     def __init__(self, model_cfg, cache, *, params: dict | None = None,
                  seed: int = 0):
         self.model_cfg = model_cfg
+        self.quantization = model_cfg.quantization
         self.cache = cache
         self.device = cache.k.device
-        if params is None:
+        if params is None and self.quantization is None:
             self.model = gpt_init(model_cfg, seed, self.device)
-        else:
-            self.model = GPT(model_cfg, self.device)
-            self.model.load_state_dict(params)
+            return
+        if params is None:
+            f32 = dataclasses.replace(model_cfg, dtype=torch.float32,
+                                      quantization=None)
+            params = gpt_init(f32, seed, self.device).weights()
+        if self.quantization is not None:
+            params = quantize_params(params, gpt_quant_axes(model_cfg),
+                                     self.quantization)
+        self.model = GPT(model_cfg, self.device).load_weights(params)
 
     def _dev(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)

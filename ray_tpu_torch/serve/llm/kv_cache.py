@@ -8,7 +8,10 @@ The pool is ONE tensor pair on the device,
 
 and sequences own lists of physical block ids in logical-position order.
 Block 0 is the garbage sink for padding writes, so the allocator hands
-out blocks [1, num_blocks). Admission reserves a sequence's worst-case
+out blocks [1, num_blocks). With ``quantization`` set, each side of the
+pool is a ``QuantizedKV``: int8 or fp8-e4m3 data of that shape and an f32
+scale plane ``[n_layer, num_blocks, block_size, n_kv_head]``, one scale
+per written (slot, kv head). Admission reserves a sequence's worst-case
 block count (prompt + max_new_tokens) up front, so a running sequence never
 fails a mid-flight append. The free list is LIFO: a just-freed block is
 reused first.
@@ -21,6 +24,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from ray_tpu_torch.ops.quantization import (
+    QuantizedKV,
+    quant_dtype,
+    resolve_quantization,
+)
+
 
 @dataclass(frozen=True)
 class KVCacheConfig:
@@ -31,6 +40,7 @@ class KVCacheConfig:
     block_size: int = 16
     dtype: Any = torch.bfloat16
     device: Any = "cpu"
+    quantization: str | None = None  # int8 | fp8: a QuantizedKV pool
 
     @property
     def usable_blocks(self) -> int:
@@ -50,14 +60,30 @@ class PagedKVCache:
             cfg.n_layer, cfg.num_blocks, cfg.block_size,
             cfg.n_kv_head, cfg.head_dim,
         )
-        self.k = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
-        self.v = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
+        kind = resolve_quantization(cfg.quantization)
+        if kind is not None:
+            def side():
+                # zeroed as bytes, then viewed in the kind's dtype
+                data = torch.zeros(shape, dtype=torch.uint8, device=cfg.device)
+                scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=cfg.device)
+                return QuantizedKV(data.view(quant_dtype(kind)), scale)
+
+            self.k, self.v = side(), side()
+        else:
+            self.k = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
+            self.v = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
         self._free: list[int] = list(range(1, cfg.num_blocks))
         self._tables: dict[Any, list[int]] = {}
         self._reserved = 0
         # bumped whenever a sequence's table changes — lets the engine
         # cache host-side numpy tables
         self._versions: dict[Any, int] = {}
+
+    def nbytes(self) -> int:
+        """Device bytes of the pool, both sides (scales included)."""
+        return sum(t.nbytes() if isinstance(t, QuantizedKV)
+                   else t.numel() * t.element_size() for t in (self.k, self.v))
 
     # ---------------- reservation (admission control) ----------------
 

@@ -52,6 +52,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.convert\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.ops.paged_attention\n"
+        "import ray_tpu_torch.ops.quantization\n"
         "import ray_tpu_torch.ops.attention, ray_tpu_torch.ops.loss\n"
         "import ray_tpu_torch.benchmarks.gpt_mfu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -98,6 +99,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pa.resolve_backend("pallas", "cpu")
     assert pa.resolve_backend("auto", "cpu") == "torch"
     assert pa.resolve_backend("auto", torch.device("cuda", 0)) == "cuda"
+
+
+def test_quantized_kernel_wrappers_refuse_cpu_and_bad_scales():
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.quantization import QuantizedKV, quantize_kv
+
+    pool = QuantizedKV(*quantize_kv(torch.ones(3, 4, 2, 16), "int8"))
+    tables = torch.ones(1, 2, dtype=torch.int32)
+    q, pos = torch.zeros(1, 2, 16), torch.zeros(1, dtype=torch.int32)
+    before = dict(pa.LAUNCHES)
+    for fn, qq, pp in (
+        (pa.paged_attention_cuda, q, pos),
+        (pa.paged_prefill_attention_cuda, q[:, None].contiguous(),
+         pos[:, None].contiguous()),
+    ):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(qq, pool, pool, tables, pp)
+        bad = QuantizedKV(pool.data, pool.scale[:, :2].contiguous())
+        with pytest.raises(ValueError, match="scale plane"):
+            fn(qq, bad, bad, tables, pp)
+        with pytest.raises(TypeError, match="int8 or float8"):
+            fn(qq, *[QuantizedKV(pool.data.float(), pool.scale)] * 2, tables,
+               pp)
+    assert pa.LAUNCHES == before
 
 
 def test_kernel_build_is_keyed_by_source_and_headers(tmp_path, monkeypatch):

@@ -154,5 +154,5 @@ def test_submit_and_sampling_validation(weights):
                 {"top_p": 0.0}, {"top_p": 1.5}):
         with pytest.raises(ValueError):
             SamplingParams(**bad)
-    with pytest.raises(TypeError):
-        type(engine.cfg)(quantization="int8")  # not ported: no such field
+    with pytest.raises(ValueError, match="int4"):
+        _port_engine(weights, quantization="int4")  # a typo never serves f32

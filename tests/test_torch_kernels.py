@@ -6,7 +6,10 @@ path's full shapes.
 
 Tolerances on the same inputs: f32 1e-5 (online vs one-shot softmax
 order); bf16 1e-2 + 2 bf16 ulps of the value (the kernel rounds exp2 and
-the probabilities to bf16 like the TPU kernel)."""
+the probabilities to bf16 like the TPU kernel). The quantized variants
+dequantize the same bytes to the same f32 values as their plain versions
+and run an f32 softmax, so they take the tolerance of q's dtype (bf16:
+the q pre-scale and the output rounding)."""
 from __future__ import annotations
 
 import dataclasses
@@ -88,6 +91,91 @@ def test_prefill_kernel_matches_plain(cuda, dtype, gqa, window):
     want = paged_prefill_attention(q, k, v, tables, pos, window=window)
     valid = ar[None, :] < lens[:, None]  # padding rows are discarded
     _assert_close(got[valid], want[valid], dtype)
+
+
+# ---- the quantized variants of B4 and B5: int8 / fp8-e4m3 pools with f32
+# scales, against the same plain versions on the same QuantizedKV pool
+
+
+def _quantized(k, v, kind):
+    from ray_tpu_torch.ops.quantization import QuantizedKV, quantize_kv
+
+    return tuple(QuantizedKV(*quantize_kv(x, kind)) for x in (k, v))
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gqa", [1, 2])
+def test_quantized_decode_kernel_matches_plain(cuda, kind, dtype, gqa):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_attention
+
+    lengths = [1, 17, 64, 200]
+    B, Hkv, hd, bs, NB = len(lengths), 2, 64, 16, 16
+    gen, k, v, tables = _case(cuda, torch.float32, B, Hkv, gqa, hd, bs, NB,
+                              [-(-n // bs) for n in lengths], seed=gqa)
+    k, v = _quantized(k, v, kind)
+    q = torch.randn(B, Hkv * gqa, hd, generator=gen, device=cuda).to(dtype)
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                       device=cuda)
+    before = dict(pa.LAUNCHES)
+    got = pa.paged_attention_cuda(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    assert {n: pa.LAUNCHES[n] - before[n] for n in before
+            if pa.LAUNCHES[n] != before[n]} == {f"paged_decode_{kind}": 1}
+    _assert_close(got, paged_attention(q, k, v, tables, pos), dtype)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gqa,window", [(1, None), (2, None), (1, 7),
+                                        (2, 24)])
+def test_quantized_prefill_kernel_matches_plain(cuda, kind, dtype, gqa,
+                                                window):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
+
+    starts, S = [0, 5, 40], 45
+    lens = torch.tensor([45, 30, 12], device=cuda)
+    B, Hkv, hd, bs, NB = 3, 2, 64, 16, 6
+    gen, k, v, tables = _case(cuda, torch.float32, B, Hkv, gqa, hd, bs, NB,
+                              [-(-(s + S) // bs) for s in starts], seed=9)
+    k, v = _quantized(k, v, kind)
+    q = torch.randn(B, S, Hkv * gqa, hd, generator=gen, device=cuda).to(dtype)
+    ar = torch.arange(S, device=cuda)
+    pos = torch.tensor(starts, device=cuda)[:, None] + ar[None, :]
+    pos = torch.where(ar[None, :] < lens[:, None], pos, 0).to(torch.int32)
+    before = pa.LAUNCHES[f"paged_prefill_{kind}"]
+    got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos, window=window)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[f"paged_prefill_{kind}"] == before + 1
+    want = paged_prefill_attention(q, k, v, tables, pos, window=window)
+    valid = ar[None, :] < lens[:, None]
+    _assert_close(got[valid], want[valid], dtype)
+
+
+def test_quantized_wrappers_refuse_bad_pools_on_cuda(cuda):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.quantization import QuantizedKV
+
+    gen, k, v, tables = _case(cuda, torch.float32, 1, 2, 1, 64, 16, 2, [2],
+                              seed=0)
+    k, v = _quantized(k, v, "int8")
+    q = torch.randn(1, 2, 64, generator=gen, device=cuda)
+    pos = torch.tensor([20], dtype=torch.int32, device=cuda)
+    before = dict(pa.LAUNCHES)
+    bad_scale = QuantizedKV(k.data, k.scale[..., :1].contiguous())
+    with pytest.raises(ValueError, match="scale plane"):
+        pa.paged_attention_cuda(q, bad_scale, v, tables, pos)
+    with pytest.raises(TypeError, match="both be quantized"):
+        pa.paged_attention_cuda(q, k, v.data.float(), tables, pos)
+    with pytest.raises(TypeError, match="pool dtype"):
+        pa.paged_attention_cuda(q, k.data, v.data, tables, pos)
+    narrow = _quantized(torch.zeros(3, 16, 2, 8, device=cuda),
+                        torch.zeros(3, 16, 2, 8, device=cuda), "fp8")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pa.paged_attention_cuda(q[..., :8].contiguous(), *narrow, tables, pos)
+    assert pa.LAUNCHES == before
 
 
 def test_gpt_cuda_backend_matches_torch_backend(cuda):
