@@ -10,8 +10,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. holds each kernel against its plain PyTorch version at its path's
    shapes, in bf16 and f32, and times kernel, plain version, one PyTorch
    library call for the same function (SDPA, a yardstick the port never
-   calls) and the card's bound: the paged kernels B4/B5 at the serving
-   shapes, the flash-attention kernels B1-B3 at the training shapes
+   calls), the card's bound and the achieved TFLOP/s (the operations
+   the bound counts over the kernel's time): the paged kernels B4/B5 at
+   the serving shapes, the flash-attention kernels B1-B3 at the training
+   shapes
    (B 16, 12 heads of 64, S 1024, causal; the full variant for agreement);
    the quantized variants of B4/B5 on int8 and fp8-e4m3 pools at the
    serving shapes (bf16 q; windowed, G = 2 and f32-q cases for agreement);
@@ -195,7 +197,7 @@ def decode_bound(x, dtype_name, esize, kv_row=None):
     nbytes = (tokens * H * kv_row * 2 + 2 * B * H * hd * esize
               + x["tables"].numel() * 4 + B * 4)
     ops = 4 * hd * H * tokens
-    return bound(nbytes, ops, dtype_name)
+    return bound(nbytes, ops, dtype_name) + (ops,)
 
 
 def prefill_bound(x, dtype_name, esize, kv_row=None):
@@ -206,13 +208,18 @@ def prefill_bound(x, dtype_name, esize, kv_row=None):
     nbytes = (ctx * H * kv_row * 2 + 2 * B * S * H * hd * esize
               + x["tables"].numel() * 4 + B * S * 4)
     ops = 4 * hd * pairs
-    return bound(nbytes, ops, dtype_name)
+    return bound(nbytes, ops, dtype_name) + (ops,)
 
 
 def bound(nbytes, ops, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tflops(ops, ms):
+    """Achieved rate: the operations the bound counts over the time."""
+    return ops / (ms * 1e-3) / 1e12
 
 
 def dense_sdpa_inputs(torch, q4, k, v, tables, pos):
@@ -280,8 +287,9 @@ def kernels_phase(torch, quick: bool, kind=None) -> dict:
             row["library_ms"] = timer(
                 lambda: F.scaled_dot_product_attention(sq, sk, sv,
                                                        attn_mask=mask))
-            row["bound_ms"], row["bound_by"] = decode_bound(
+            row["bound_ms"], row["bound_by"], ops = decode_bound(
                 x, ops_type, esize, kv_row)
+            row["tflops"] = tflops(ops, row["ms"])
             log(f"{kname} {name}: {json.dumps(row)}")
             del sq, sk, sv, mask
         rows[(kname, name)] = row
@@ -309,8 +317,9 @@ def kernels_phase(torch, quick: bool, kind=None) -> dict:
                 row["library_ms"] = timer(
                     lambda: F.scaled_dot_product_attention(
                         sq, sk, sv, attn_mask=mask))
-                row["bound_ms"], row["bound_by"] = prefill_bound(
+                row["bound_ms"], row["bound_by"], ops = prefill_bound(
                     x, ops_type, esize, kv_row)
+                row["tflops"] = tflops(ops, row["ms"])
                 log(f"{kname} {name} {label}: {json.dumps(row)}")
                 del sq, sk, sv, mask
             rows[(kname, name, label)] = row
@@ -330,19 +339,19 @@ def kernels_phase(torch, quick: bool, kind=None) -> dict:
 # ------------------------------------------------------- flash attention
 
 def flash_bounds(dtype_name, esize) -> dict:
-    """Bound of each flash kernel at FLASH, causal: every input read once,
-    every output written once; 2 * D flops per product per visible pair
-    (B1 two products, B2 four, B3 three)."""
+    """Bound of each flash kernel at FLASH, causal, and the operations it
+    counts: every input read once, every output written once; 2 * D flops
+    per product per visible pair (B1 two products, B2 four, B3 three)."""
     c = FLASH
     B, H, S, D = c["B"], c["H"], c["S"], c["D"]
     pairs = B * H * S * (S + 1) // 2
     t = B * H * S * D * esize          # one [B, H, S, D] tensor
     r = B * H * S * 4                  # one [B, H, S] f32 vector
-    return {
-        "flash_fwd": bound(4 * t + r, 4 * D * pairs, dtype_name),
-        "flash_bwd_dkv": bound(6 * t + 2 * r, 8 * D * pairs, dtype_name),
-        "flash_bwd_dq": bound(5 * t + 2 * r, 6 * D * pairs, dtype_name),
-    }
+    work = {"flash_fwd": (4 * t + r, 4 * D * pairs),
+            "flash_bwd_dkv": (6 * t + 2 * r, 8 * D * pairs),
+            "flash_bwd_dq": (5 * t + 2 * r, 6 * D * pairs)}
+    return {name: bound(nbytes, ops, dtype_name) + (ops,)
+            for name, (nbytes, ops) in work.items()}
 
 
 def flash_phase(torch, quick: bool) -> dict:
@@ -424,7 +433,8 @@ def flash_phase(torch, quick: bool) -> dict:
                 row["ms"] = timer(kern)
                 row["plain_ms"] = timer(plain)
                 row["library_ms"] = library[kname]
-                row["bound_ms"], row["bound_by"] = bounds[kname]
+                row["bound_ms"], row["bound_by"], ops = bounds[kname]
+                row["tflops"] = tflops(ops, row["ms"])
                 log(f"{kname} {name}: {json.dumps(row)}")
     return rows
 
@@ -835,7 +845,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "tflops": r["tflops"],
             "f32": rows[(name, "float32") + case],
         })
         if case:
@@ -854,7 +864,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "tflops": r["tflops"],
             "f32": frows[(name, "float32")],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

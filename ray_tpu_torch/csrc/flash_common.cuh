@@ -1,5 +1,6 @@
-// Shared device code of the flash-attention kernels (flash_fwd.cu: B1;
-// flash_bwd.cu: B2 and B3).
+// Shared device code of the flash-attention kernels on the CUDA cores
+// (flash_fwd.cu: B1 with f32 inputs; flash_bwd.cu: B2 and B3). B1 with
+// bf16 inputs runs on the tensor cores (mma_common.cuh).
 //
 // Layout: q, k, v, o and their gradients are [B*H, S, D] row-major (the
 // [B, H, S, D] tensors of the wrapper, contiguous); the base-2 log-sum-exp
@@ -23,6 +24,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace flash {
 
@@ -120,15 +123,7 @@ __device__ __forceinline__ void zero(float (&acc)[8][N / 16]) {
     for (int j = 0; j < N / 16; ++j) acc[i][j] = 0.f;
 }
 
-// Launch configuration shared by the three kernels: dynamic shared memory
-// above 48 KB needs the attribute set first.
-template <typename Kernel>
-__host__ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
+using mma::allow_smem;  // dynamic shared memory above 48 KB
 
 // Whether the key at kpos is visible from the query at qpos.
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S,

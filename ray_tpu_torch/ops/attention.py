@@ -3,7 +3,8 @@ kernels (counterpart of ``ray_tpu/ops/attention.py``).
 
 - ``flash_forward_cuda`` launches ``csrc/flash_fwd.cu`` (kernel B1,
   replacing ``_flash_fwd_kernel``): the forward with a base-2 online
-  softmax, writing o and the base-2 log-sum-exp.
+  softmax, writing o and the base-2 log-sum-exp; bf16 inputs run on the
+  tensor cores, f32 inputs on the CUDA cores.
 - ``flash_bwd_dkv_cuda`` launches kernel B2 of ``csrc/flash_bwd.cu``
   (replacing ``_flash_bwd_dkv_kernel``): dK and dV.
 - ``flash_bwd_dq_cuda`` launches kernel B3 of the same source (replacing
@@ -200,6 +201,9 @@ def flash_forward_cuda(q, k, v, *, causal: bool, scale: float,
     """Kernel B1; same contract as ``flash_forward_reference`` (lse is None
     unless ``save_lse``)."""
     _check("flash_fwd", (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_fwd: q, k and v must start on a 16-byte "
+                         "boundary (the kernel copies them in 16-byte pieces)")
     B, H, S, D = q.shape
     o = torch.empty_like(q)
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)

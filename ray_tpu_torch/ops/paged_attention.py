@@ -5,7 +5,8 @@
   replacing ``_paged_decode_kernel``): one query token per sequence.
 - ``paged_prefill_attention_cuda`` launches ``csrc/paged_prefill.cu``
   (kernel B5, replacing ``_paged_prefill_kernel``): a chunk of queries at
-  true positions, optional sliding window.
+  true positions, optional sliding window. A bf16 q runs on the tensor
+  cores (head_dim up to 128), an f32 q on the CUDA cores.
 
 Both take the same arguments as their plain versions in
 ``ops/kv_cache.py``. A pool of ``QuantizedKV`` layers (int8 or fp8-e4m3
@@ -41,6 +42,9 @@ LAUNCHES = {"paged_decode": 0, "paged_decode_int8": 0, "paged_decode_fp8": 0,
             "paged_prefill_fp8": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# widest head B5 takes with a bf16 q (its tensor-core tiles are built for
+# head dims 32, 64 and 128; narrower heads pad to the next one)
+BF16_PREFILL_MAX_HEAD_DIM = 128
 # pool storage codes of the C entry points: 0 = q's dtype, else quantized
 _KV_CODES = {torch.int8: (1, "_int8"), torch.float8_e4m3fn: (2, "_fp8")}
 
@@ -116,6 +120,11 @@ def _check(name, q, k_layer, v_layer, block_tables, positions, q_dims):
         )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_layer, v_layer)):
+        raise ValueError(
+            f"{name}: q and the pool must start on a 16-byte boundary (the "
+            f"kernels copy them in 16-byte pieces)"
+        )
     ks, vs = (t.data_ptr() for t in scales) if scales else (None, None)
     return name + suffix, code, (k_layer.data_ptr(), v_layer.data_ptr(), ks, vs)
 
@@ -171,6 +180,12 @@ def paged_prefill_attention_cuda(
     B, S, Hq, hd = q.shape
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q.dtype == torch.bfloat16 and hd > BF16_PREFILL_MAX_HEAD_DIM:
+        raise ValueError(
+            f"{key}: a bfloat16 q takes the tensor-core tiles, which hold a "
+            f"row's head in registers and are built for head_dim up to "
+            f"{BF16_PREFILL_MAX_HEAD_DIM}; got {hd}"
+        )
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     _, bs, Hkv, _ = k_layer.shape
     out = torch.empty_like(q)

@@ -7,9 +7,10 @@ path's full shapes.
 Tolerances on the same inputs: f32 1e-5 (online vs one-shot softmax
 order); bf16 1e-2 + 2 bf16 ulps of the value (the kernel rounds exp2 and
 the probabilities to bf16 like the TPU kernel). The quantized variants
-dequantize the same bytes to the same f32 values as their plain versions
-and run an f32 softmax, so they take the tolerance of q's dtype (bf16:
-the q pre-scale and the output rounding)."""
+read the same bytes and scales as their plain versions and run an f32
+softmax, so they take the tolerance of q's dtype (bf16: the q pre-scale
+and the output rounding; B5's tensor-core path with a bf16 q adds fp16's
+2^-11 rounding of each p * vscale, well inside it)."""
 from __future__ import annotations
 
 import dataclasses
@@ -70,27 +71,73 @@ def test_decode_kernel_matches_plain(cuda, dtype, gqa):
     _assert_close(got, paged_attention(q, k, v, tables, pos), dtype)
 
 
+def _prefill_inputs(dev, dtype, starts, S, lens, Hkv, G, hd, bs, seed=9):
+    """A chunk of S queries per sequence at true positions starts[b] + i,
+    rows past lens[b] padded with position 0, over a shuffled paged pool
+    of just the blocks each context needs."""
+    used = [-(-(s + S) // bs) for s in starts]
+    gen, k, v, tables = _case(dev, dtype, len(starts), Hkv, G, hd, bs,
+                              max(used), used, seed)
+    q = torch.randn(len(starts), S, Hkv * G, hd, generator=gen,
+                    device=dev).to(dtype)
+    ar = torch.arange(S, device=dev)
+    valid = ar[None, :] < torch.tensor(lens, device=dev)[:, None]
+    pos = torch.tensor(starts, device=dev)[:, None] + ar[None, :]
+    pos = torch.where(valid, pos, 0).to(torch.int32)
+    return q, k, v, tables, pos, valid
+
+
+# after the first four cases, the edges of B5's 64-row x 64-token tiles:
+# chunks that are not a multiple of 64 rows; contexts whose tiles span
+# several pool blocks, the last one partly past the frontier; G = 4 with
+# a window that crosses kv-tile boundaries; block sizes other than the
+# engine's 16, below, above and not dividing the 64-token tile; head dims
+# that pad (40 -> 64, 96 -> 128) and the widest the bf16 tiles take
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gqa,window", [(1, None), (2, None), (4, 24),
-                                        (1, 7)])
-def test_prefill_kernel_matches_plain(cuda, dtype, gqa, window):
+@pytest.mark.parametrize("S,starts,lens,gqa,window,bs,hd", [
+    (45, [0, 5, 40], [45, 30, 12], 1, None, 16, 64),
+    (45, [0, 5, 40], [45, 30, 12], 2, None, 16, 64),
+    (45, [0, 5, 40], [45, 30, 12], 4, 24, 16, 64),
+    (45, [0, 5, 40], [45, 30, 12], 1, 7, 16, 64),
+    (100, [0, 70, 200], [100, 100, 77], 1, None, 16, 64),
+    (100, [3, 130, 0], [100, 64, 100], 4, 50, 16, 64),
+    (80, [0, 33, 150], [80, 80, 80], 2, None, 8, 64),
+    (70, [0, 100, 250], [70, 70, 1], 1, 100, 128, 64),
+    (90, [5, 60, 121], [90, 45, 90], 2, 70, 12, 64),
+    (65, [0, 64, 200], [65, 65, 65], 1, None, 32, 32),
+    (65, [0, 64, 200], [65, 65, 65], 2, 40, 16, 40),
+    (65, [17, 64, 3], [65, 30, 65], 1, None, 16, 96),
+    (65, [0, 129, 7], [65, 65, 65], 1, None, 16, 128),
+])
+def test_prefill_kernel_matches_plain(cuda, dtype, S, starts, lens, gqa,
+                                      window, bs, hd):
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
 
-    starts, S = [0, 5, 40], 45
-    lens = torch.tensor([45, 30, 12], device=cuda)
-    B, Hkv, hd, bs, NB = 3, 2, 64, 16, 6
-    gen, k, v, tables = _case(cuda, dtype, B, Hkv, gqa, hd, bs, NB,
-                              [-(-(s + S) // bs) for s in starts], seed=9)
-    q = torch.randn(B, S, Hkv * gqa, hd, generator=gen, device=cuda).to(dtype)
-    ar = torch.arange(S, device=cuda)
-    pos = torch.tensor(starts, device=cuda)[:, None] + ar[None, :]
-    pos = torch.where(ar[None, :] < lens[:, None], pos, 0).to(torch.int32)
+    q, k, v, tables, pos, valid = _prefill_inputs(cuda, dtype, starts, S,
+                                                  lens, 2, gqa, hd, bs)
+    before = pa.LAUNCHES["paged_prefill"]
     got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos, window=window)
     torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_prefill"] == before + 1
     want = paged_prefill_attention(q, k, v, tables, pos, window=window)
-    valid = ar[None, :] < lens[:, None]  # padding rows are discarded
-    _assert_close(got[valid], want[valid], dtype)
+    _assert_close(got[valid], want[valid], dtype)  # padding rows discarded
+
+
+def test_prefill_wrapper_refuses_wide_bf16_heads(cuda):
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, pos, _ = _prefill_inputs(
+        cuda, torch.bfloat16, [0], 8, [8], 1, 1, 256, 16)
+    before = dict(pa.LAUNCHES)
+    with pytest.raises(ValueError, match="head_dim up to 128"):
+        pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
+    assert pa.LAUNCHES == before
+    # an f32 q keeps the CUDA-core walk, which takes heads up to 256
+    got = pa.paged_prefill_attention_cuda(q.float(), k.float(), v.float(),
+                                          tables, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
 
 
 # ---- the quantized variants of B4 and B5: int8 / fp8-e4m3 pools with f32
@@ -154,6 +201,36 @@ def test_quantized_prefill_kernel_matches_plain(cuda, kind, dtype, gqa,
     _assert_close(got[valid], want[valid], dtype)
 
 
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("k_mult", [1e3, 1e-3])
+def test_quantized_prefill_kernel_large_and_small_scales(cuda, kind, k_mult):
+    """Pools whose scales span many decades: K scaled by k_mult (q by its
+    inverse, so the scores keep unit size while the K scale plane is large
+    or small), V by a factor per token from 1e-3 to 1e3, so one kv tile
+    mixes large and small V scales. The kernel folds V's scales into P
+    relative to the largest it has seen; compared in units of the largest
+    |v|, as the rounding of every product scales with it."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
+
+    dtype = torch.bfloat16
+    q, k, v, tables, pos, valid = _prefill_inputs(
+        cuda, torch.float32, [0, 40, 150], 100, [100, 100, 60], 2, 2, 64, 16,
+        seed=11)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    v_mult = 10.0 ** (6 * torch.rand(*v.shape[:3], 1, generator=gen,
+                                     device=cuda) - 3)
+    k, v = _quantized(k * k_mult, v * v_mult, kind)
+    q = (q / k_mult).to(dtype)
+    got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos, window=None)
+    torch.cuda.synchronize()
+    want = paged_prefill_attention(q, k, v, tables, pos)
+    unit = v_mult.max()
+    assert torch.isfinite(got[valid]).all()
+    _assert_close(got[valid].float() / unit, want[valid].float() / unit,
+                  dtype)
+
+
 def test_quantized_wrappers_refuse_bad_pools_on_cuda(cuda):
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.ops.quantization import QuantizedKV
@@ -207,10 +284,16 @@ def test_gpt_cuda_backend_matches_torch_backend(cuda):
 # ---- flash attention: B1 (forward), B2 (dK/dV) and B3 (dQ), at TOL
 
 
+# the tile edges of B1's tensor-core path: one row, a tile short by one,
+# one row past a tile, and the training length, at every head dim
+_FLASH_EDGES = [(S, D, causal) for S in (1, 63, 65, 1024)
+                for D in (32, 64, 128) for causal in (True, False)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,D,causal", [(128, 64, True), (200, 64, True),
                                         (96, 32, False), (64, 128, True),
-                                        (17, 64, False)])
+                                        (17, 64, False)] + _FLASH_EDGES)
 def test_flash_kernels_match_plain(cuda, dtype, S, D, causal):
     from ray_tpu_torch.ops import attention as at
 
