@@ -6,15 +6,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. prints the card's name and power limit (nvidia-smi) and checks that its
    compute capability is at least 9.0;
 2. builds the CUDA kernels from ``ray_tpu_torch/csrc`` and prints the
-   build time;
+   build time, and the registers and local (spill) bytes per thread of
+   every flash-backward instantiation;
 3. holds each kernel against its plain PyTorch version at its path's
    shapes, in bf16 and f32, and times kernel, plain version, one PyTorch
    library call for the same function (SDPA, a yardstick the port never
    calls), the card's bound and the achieved TFLOP/s (the operations
    the bound counts over the kernel's time): the paged kernels B4/B5 at
    the serving shapes, the flash-attention kernels B1-B3 at the training
-   shapes
-   (B 16, 12 heads of 64, S 1024, causal; the full variant for agreement);
+   shapes (B 16, 12 heads of 64, S 1024, causal and full);
    the quantized variants of B4/B5 on int8 and fp8-e4m3 pools at the
    serving shapes (bf16 q; windowed, G = 2 and f32-q cases for agreement);
 4. trains GPT-2 125M at full width and depth (bf16 activations, f32
@@ -338,13 +338,13 @@ def kernels_phase(torch, quick: bool, kind=None) -> dict:
 
 # ------------------------------------------------------- flash attention
 
-def flash_bounds(dtype_name, esize) -> dict:
-    """Bound of each flash kernel at FLASH, causal, and the operations it
-    counts: every input read once, every output written once; 2 * D flops
-    per product per visible pair (B1 two products, B2 four, B3 three)."""
+def flash_bounds(dtype_name, esize, causal) -> dict:
+    """Bound of each flash kernel at FLASH and the operations it counts:
+    every input read once, every output written once; 2 * D flops per
+    product per visible pair (B1 two products, B2 four, B3 three)."""
     c = FLASH
     B, H, S, D = c["B"], c["H"], c["S"], c["D"]
-    pairs = B * H * S * (S + 1) // 2
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     t = B * H * S * D * esize          # one [B, H, S, D] tensor
     r = B * H * S * 4                  # one [B, H, S] f32 vector
     work = {"flash_fwd": (4 * t + r, 4 * D * pairs),
@@ -355,9 +355,10 @@ def flash_bounds(dtype_name, esize) -> dict:
 
 
 def flash_phase(torch, quick: bool) -> dict:
-    """B1-B3 against their plain versions at the training shapes; the
-    backward kernels read the plain forward's o and lse, so each kernel is
-    held alone."""
+    """B1-B3 against their plain versions at the training shapes, causal
+    (rows keyed (kernel, dtype)) and full (keyed (kernel, dtype, "full"));
+    the backward kernels read the plain forward's o and lse, so each kernel
+    is held alone."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as at
@@ -397,10 +398,9 @@ def flash_phase(torch, quick: bool) -> dict:
                 "flash_bwd_dq": cmp("flash_bwd_dq dq", dq, dq_ref),
             }
             del o, lse, dk, dv, dq, dk_ref, dv_ref, dq_ref
-            if not causal:  # the full variant: agreement only (ViT's path)
-                continue
+            key = () if causal else ("full",)  # full: ViT's path
             for kname, err in errs.items():
-                rows[(kname, name)] = {"max_abs_err": err}
+                rows[(kname, name) + key] = {"max_abs_err": err}
             if timer is None:
                 continue
             fns = {
@@ -418,25 +418,44 @@ def flash_phase(torch, quick: bool) -> dict:
             # autograd, which computes B2's and B3's work together
             lq, lk, lv = (t.detach().clone().requires_grad_()
                           for t in (q, k, v))
-            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+            lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
             library = {
                 "flash_fwd": timer(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)),
+                    q, k, v, is_causal=causal)),
                 "flash_bwd_dkv": timer(lambda: torch.autograd.grad(
                     lo, (lq, lk, lv), do, retain_graph=True)),
             }
             library["flash_bwd_dq"] = library["flash_bwd_dkv"]
             del lo, lq, lk, lv
-            bounds = flash_bounds(name, esize)
+            bounds = flash_bounds(name, esize, causal)
             for kname, (kern, plain) in fns.items():
-                row = rows[(kname, name)]
+                row = rows[(kname, name) + key]
                 row["ms"] = timer(kern)
                 row["plain_ms"] = timer(plain)
                 row["library_ms"] = library[kname]
                 row["bound_ms"], row["bound_by"], ops = bounds[kname]
                 row["tflops"] = tflops(ops, row["ms"])
-                log(f"{kname} {name}: {json.dumps(row)}")
+                log(f"{kname} {name} {label}: {json.dumps(row)}")
     return rows
+
+
+def flash_bwd_registers() -> None:
+    """Registers and local (spill) bytes per thread of every B2/B3
+    instantiation, as the built library reports them."""
+    import ctypes
+
+    from ray_tpu_torch import _build
+
+    fn = _build.bind("flash_bwd", "flash_bwd_attributes", "iiip")
+    out = (ctypes.c_int * 2)()
+    parts = []
+    for kname, dkv in (("flash_bwd_dkv", 1), ("flash_bwd_dq", 0)):
+        for dtype_name, code in (("bfloat16", 1), ("float32", 0)):
+            for D in (32, 64, 128):
+                _build.raise_on("flash_bwd", kname, fn(dkv, D, code, out))
+                parts.append(f"{kname} {dtype_name} D={D} {out[0]}/{out[1]}")
+    log("flash backward registers / local bytes per thread: "
+        + "; ".join(parts))
 
 
 # ---------------------------------------------------------------- training
@@ -795,6 +814,7 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s "
         f"({', '.join(_build.sources())})")
 
+    flash_bwd_registers()
     rows = kernels_phase(torch, args.quick)
     for kind in QUANT_KINDS:
         rows.update(kernels_phase(torch, args.quick, kind))
@@ -866,6 +886,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "tflops": r["tflops"],
             "f32": frows[(name, "float32")],
+            "full": frows[(name, "bfloat16", "full")],
+            "full_f32": frows[(name, "float32", "full")],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

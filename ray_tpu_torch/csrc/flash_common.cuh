@@ -1,6 +1,7 @@
-// Shared device code of the flash-attention kernels on the CUDA cores
-// (flash_fwd.cu: B1 with f32 inputs; flash_bwd.cu: B2 and B3). B1 with
-// bf16 inputs runs on the tensor cores (mma_common.cuh).
+// Shared device code of the flash-attention kernels on the CUDA cores, the
+// f32 instantiations of B1 (flash_fwd.cu), B2 and B3 (flash_bwd.cu). Their
+// bf16 instantiations run on the tensor cores (mma_common.cuh): the f32
+// tensor-core form would be TF32, which rounds the inputs.
 //
 // Layout: q, k, v, o and their gradients are [B*H, S, D] row-major (the
 // [B, H, S, D] tensors of the wrapper, contiguous); the base-2 log-sum-exp

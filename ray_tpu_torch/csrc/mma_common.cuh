@@ -1,7 +1,8 @@
 // Shared device code of the tensor-core attention kernels (flash_fwd.cu:
 // B1 with bf16 inputs; paged_prefill.cu: B5 and its quantized variant with
-// a bf16 q). Both are forward attention with a base-2 online softmax over
-// a pre-scaled q, FlashAttention-2 style on mma.sync:
+// a bf16 q; flash_bwd.cu: B2 and B3 with bf16 inputs). The forward kernels
+// run a base-2 online softmax over a pre-scaled q, FlashAttention-2 style
+// on mma.sync:
 //
 // - a block of 4 warps owns 64 query rows, 16 per warp; each warp keeps
 //   its rows' m, l and output accumulator in f32 registers, and its Q
@@ -14,6 +15,10 @@
 // - the softmax runs on the S accumulator fragment: a row lives in the 4
 //   threads of a quad (2 shuffles per reduction), and the P fragment
 //   becomes the A operand of P V without leaving registers.
+//
+// The backward kernels use the same pieces on other operands: qk for
+// S and dP (or their transposes, with K and V as the A operand), pv for
+// every product summed over a tile's rows.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, c = lane % 4): accumulator
 // d[0..1] is row g, columns 2c, 2c+1 of the n-tile, d[2..3] row g + 8. An
@@ -132,6 +137,28 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const void* any,
   }
 }
 
+// Multiply the chunks this thread staged with stage_rows<CH> into a bf16
+// tile by c, rounding to bf16 (the TPU kernels' pre-scaled q), once its
+// own copies have landed (cp_wait_all) and before the barrier that
+// publishes the tile; zero-filled rows stay zero.
+template <int CH>
+__device__ __forceinline__ void scale_rows(uint16_t* dst, int ld, float c) {
+  const int ch = threadIdx.x % CH;
+#pragma unroll
+  for (int r = threadIdx.x / CH; r < kRows; r += kThreads / CH) {
+    uint4* at = reinterpret_cast<uint4*>(dst + r * ld + ch * 8);
+    uint4 x = *at;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      w[i] = pack2<false>(f.x * c, f.y * c);
+    }
+    *at = x;
+  }
+}
+
 // The warp's Q fragments from its 16 rows of a bf16 tile [16][ld], each
 // multiplied by c and rounded to bf16 (the TPU kernels' pre-scaled q).
 template <int HD>
@@ -172,6 +199,34 @@ __device__ __forceinline__ void qk(float (&s)[8][4],
       mma16816<false>(s[2 * np], qf[kk], b[0], b[1]);
       mma16816<false>(s[2 * np + 1], qf[kk], b[2], b[3]);
     }
+}
+
+// qk with the A fragments read from a bf16 tile [16][lda] in shared
+// memory one k-step at a time instead of held in registers (wide heads,
+// where the fragments would not fit beside the accumulators).
+template <int HD>
+__device__ __forceinline__ void qk_smem(float (&s)[8][4], const uint16_t* as,
+                                        int lda, const uint16_t* ks, int ld) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  const uint16_t* abase = as + (lane & 15) * lda + (lane >> 4) * 8;
+  const uint16_t* base =
+      ks + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, abase + kk * 16);
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, base + np * 16 * ld + kk * 16);
+      mma16816<false>(s[2 * np], a, b[0], b[1]);
+      mma16816<false>(s[2 * np + 1], a, b[2], b[3]);
+    }
+  }
 }
 
 // acc[n] += P V for dims 8n .. 8n+7 of a 16-bit V tile [64][ld]; pa[k] is
@@ -261,6 +316,15 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
       pa[kk][2 * half] = pack2<F16>(s[j][0] * w.x, s[j][1] * w.y);
       pa[kk][2 * half + 1] = pack2<F16>(s[j][2] * w.x, s[j][3] * w.y);
     }
+}
+
+// Entry (j, e) of the fragment s that pack_p<false>(pa, s, nullptr, 1)
+// packed into pa: exact for entries already rounded to bf16.
+__device__ __forceinline__ float unpack_p(const uint32_t (&pa)[4][4], int j,
+                                          int e) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      &pa[j >> 1][2 * (j & 1) + (e >> 1)]));
+  return (e & 1) ? f.y : f.x;
 }
 
 // The quad's full row sums from each thread's partial ones.

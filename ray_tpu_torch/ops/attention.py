@@ -9,7 +9,9 @@ kernels (counterpart of ``ray_tpu/ops/attention.py``).
   (replacing ``_flash_bwd_dkv_kernel``): dK and dV.
 - ``flash_bwd_dq_cuda`` launches kernel B3 of the same source (replacing
   ``_flash_bwd_dq_kernel``): dQ. ``flash_backward_cuda`` runs B2 then B3,
-  the TPU code's two-pass schedule, after ``delta = rowsum(dO * O)``.
+  the TPU code's two-pass schedule, after ``delta = rowsum(dO * O)``. As
+  for B1, bf16 inputs run on the tensor cores, f32 inputs on the CUDA
+  cores.
 
 Beside each is its plain version (``flash_forward_reference``,
 ``flash_bwd_dkv_reference``, ``flash_bwd_dq_reference``, and
@@ -222,6 +224,9 @@ def flash_forward_cuda(q, k, v, *, causal: bool, scale: float,
 
 def _check_bwd(name, q, k, v, lse, delta, do):
     _check(name, (q, k, v, do, lse, delta))
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError(f"{name}: q, k, v and dO must start on a 16-byte "
+                         "boundary (the kernel copies them in 16-byte pieces)")
     rows = tuple(q.shape[:3])
     if lse.shape != rows or delta.shape != rows or \
             lse.dtype != torch.float32 or delta.dtype != torch.float32:

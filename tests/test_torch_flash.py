@@ -95,6 +95,55 @@ def test_flash_reference_bf16_matches_jax():
     assert err.max() <= 4 * 2 ** -7
 
 
+@pytest.mark.parametrize(
+    "S,D,block,causal,q_mult",
+    [
+        (160, 32, 32, True, 1),    # 5 kv blocks: JAX two-pass backward
+        (128, 32, 64, True, 1),    # 2 kv blocks: JAX fused backward
+        (128, 32, 64, False, 1),   # full attention
+        (160, 64, 32, True, 1),    # GPT-2's head dim
+        (160, 32, 32, True, 8),    # large scores: most p underflow
+    ],
+)
+def test_flash_backward_reference_bf16_matches_jax(S, D, block, causal,
+                                                    q_mult):
+    """bf16 inputs: the plain backward (B2 and B3's plain versions) against
+    the Pallas backward in interpret mode, both fed the same saved o and
+    lse. Both keep the TPU kernels' rounding points (pre-scaled q, bf16
+    ``s - lse``, ``exp2``, p and ds), but XLA-CPU's bf16 ``exp2`` is up to
+    14 bf16 ulps from the exact value where ``torch.exp2`` is within half
+    an ulp, so the two p differ by a few ulps and the gradients by up to
+    about 2.4 bf16 ulps (1.84% of the largest magnitude measured): each
+    gradient within 4 * 2^-7 of its largest |JAX| entry."""
+    import jax.numpy as jnp
+    from ray_tpu.ops.attention import _flash_backward
+
+    from ray_tpu_torch.ops.attention import (
+        flash_backward_reference,
+        flash_forward_reference,
+    )
+
+    q, k, v, g = _inputs(S + block, 1, 2, 2, S, D)
+    q, k, v, g = (torch.from_numpy(x).bfloat16() for x in (q_mult * q, k, v, g))
+    scale = 1 / math.sqrt(D)
+    o, lse = flash_forward_reference(q, k, v, causal=causal, scale=scale)
+    got = flash_backward_reference(q, k, v, o, lse, g, causal=causal,
+                                   scale=scale)
+
+    def to_jax(t):
+        return jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16
+                           if t.dtype == torch.bfloat16 else jnp.float32)
+
+    want = _flash_backward(*(to_jax(t) for t in (q, k, v, o, lse, g)),
+                           causal=causal, scale=scale, block_q=block,
+                           block_kv=block, interpret=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16
+        b = np.asarray(b.astype(jnp.float32))
+        err = np.abs(a.float().numpy() - b).max()
+        assert err <= 4 * 2 ** -7 * np.abs(b).max(), (name, err)
+
+
 def test_flash_lse_is_base2_logsumexp():
     from ray_tpu_torch.ops.attention import flash_forward_reference
 

@@ -335,3 +335,110 @@ def test_flash_attention_autograd_on_cuda(cuda):
         out[backend] = [o.detach()] + [t.grad for t in leaves]
     for got, want in zip(out["cuda"], out["torch"]):
         _assert_close(got, want, torch.float32)
+
+
+def test_flash_attention_autograd_bf16_gqa_on_cuda(cuda):
+    """bf16 through autograd, so the backward runs B2/B3's tensor-core
+    tiles, with 4 query heads per kv head (the gradient of the repeated
+    k/v sums back over each group). The two backends' forwards differ by
+    bf16 ulps (online vs one-shot softmax), and each backward starts from
+    its own o and lse, so the gradients are held by relative L2 norm, at
+    the training phase's bar (2e-2), and the output elementwise."""
+    from ray_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 8, 200, 64, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(2, 2, 200, 64, generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    g = torch.randn(2, 8, 200, 64, generator=gen, device=cuda).bfloat16()
+    out = {}
+    for backend in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(at.LAUNCHES)
+        o = at.flash_attention(*leaves, causal=True, backend=backend)
+        o.backward(g)
+        launched = {n: at.LAUNCHES[n] - before[n] for n in before}
+        want = 1 if backend == "cuda" else 0
+        assert launched == dict.fromkeys(launched, want)
+        out[backend] = [o.detach()] + [t.grad for t in leaves]
+    _assert_close(out["cuda"][0], out["torch"][0], torch.bfloat16)
+    for got, want in zip(out["cuda"][1:], out["torch"][1:]):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        assert rel <= 2e-2, rel
+
+
+@pytest.mark.parametrize("S,D,causal", [(200, 64, True), (1024, 64, True),
+                                        (130, 32, False), (200, 128, True)])
+def test_flash_backward_large_scores(cuda, S, D, causal):
+    """q times 8: most p underflow to 0 and the rest sit near 1, so the
+    bf16 rounding of s - lse and of ds dominates the gradients. B2/B3 from
+    the plain forward's o and lse against their plain versions. The
+    tensor-core scores differ from the plain f32 product in their last
+    bits, so now and then a ds rounds to the neighbouring bf16 value: that
+    moves a gradient entry by one ulp of a summed term, and here the terms
+    (|ds| up to about 20) reach the gradient's largest magnitude while the
+    sum may cancel to far less. Each entry is held within TOL of its plain
+    value or within one bf16 ulp (2^-7) of the gradient's largest entry,
+    whichever is wider (measured on an NVIDIA H100 80GB HBM3, 700.00 W:
+    at most 0.27% of it)."""
+    from ray_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v, do = (torch.randn(2, 3, S, D, generator=gen, device=cuda)
+                   for _ in range(4))
+    q, k, v, do = (t.bfloat16() for t in (8 * q, k, v, do))
+    kw = dict(causal=causal, scale=D ** -0.5)
+    o, lse = at.flash_forward_reference(q, k, v, **kw)
+    grads = at.flash_backward_cuda(q, k, v, o, lse, do, **kw)
+    refs = at.flash_backward_reference(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    for got, want in zip(grads, refs):
+        want = want.float()
+        diff = (got.float() - want).abs()
+        bar = torch.clamp(atol + rtol * want.abs(),
+                          min=2 ** -7 * want.abs().max().item())
+        assert bool((diff <= bar).all()), diff.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """Two launches of B2 and of B3 on the same inputs give the same bits:
+    no atomics, a fixed summation order."""
+    from ray_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, do = (torch.randn(4, 12, 1024, 64, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    kw = dict(causal=True, scale=64 ** -0.5)
+    o, lse = at.flash_forward_cuda(q, k, v, **kw)
+    delta = at.attention_delta(o, do)
+    args = (q, k, v, lse, delta, do)
+    runs = [(*at.flash_bwd_dkv_cuda(*args, **kw),
+             at.flash_bwd_dq_cuda(*args, **kw)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_wrappers_refuse_misaligned_tensors(cuda):
+    """The tensor-core kernels copy q, k, v and dO in 16-byte pieces: a
+    contiguous view that starts off a 16-byte boundary is refused before
+    any launch."""
+    from ray_tpu_torch.ops import attention as at
+
+    base = torch.zeros(2 * 8 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    bad = base[1:].view(1, 2, 8, 64)
+    ok = torch.zeros(1, 2, 8, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    before = dict(at.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        at.flash_forward_cuda(bad, ok, ok, causal=True, scale=1.0)
+    for args in ((bad, ok, ok, lse, lse, ok), (ok, ok, ok, lse, lse, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            at.flash_bwd_dkv_cuda(*args, causal=True, scale=1.0)
+        with pytest.raises(ValueError, match="16-byte"):
+            at.flash_bwd_dq_cuda(*args, causal=True, scale=1.0)
+    assert at.LAUNCHES == before
