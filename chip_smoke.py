@@ -17,6 +17,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    shapes (B 16, 12 heads of 64, S 1024, causal and full);
    the quantized variants of B4/B5 on int8 and fp8-e4m3 pools at the
    serving shapes (bf16 q; windowed, G = 2 and f32-q cases for agreement);
+   B4 and its int8 variant also on one 4096-token sequence (bf16 q), with
+   the number of split-K ranges the wrapper launched printed for each case;
 4. trains GPT-2 125M at full width and depth (bf16 activations, f32
    masters, seeded random weights, one fixed [16, 1025] batch) through the
    port's ``run_gpt_bench``: the loss must stay finite and fall, and each
@@ -25,7 +27,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    CUDA kernels against the plain backend;
 5. serves 8 requests on GPT-2 125M at full width (bf16, seeded random
    weights) through ``LLMEngine`` and checks every stream, the pool and
-   that both kernels' launch counts equal 12 layers x the engine's calls;
+   that both kernels' launch counts equal 12 layers x the engine's calls
+   (12 B4 launches per decode step);
 6. on the same weights runs one prefill plus decode steps with the CUDA
    kernels and with the plain backend and compares the logits;
 7. repeats 5 and 6 with ``quantization="int8"`` and ``"fp8"``: quantized
@@ -37,9 +40,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
 after one comparison per kernel (a first check of a new kernel);
-``--profile`` adds a profiled train step and profiled warm passes of the
-bf16 and the int8 engine's requests (device time by kernel, device idle
-share, step times).
+``--profile`` adds B4's device time by split count and L2 state beside
+SDPA's, a profiled train step and profiled warm passes of the bf16 and
+the int8 engine's requests (device time by kernel, device idle share,
+step times, B4's device time per call).
 """
 from __future__ import annotations
 
@@ -79,6 +83,7 @@ LOSS_TOL = 1e-2        # absolute, on a loss of about 10.8
 GRAD_REL_TOL = 2e-2    # ||g_cuda - g_plain|| / ||g_plain||, each parameter
 
 DECODE = dict(B=8, H=12, hd=64, bs=16, num_blocks=1024, max_len=1024)
+LONG_DECODE = dict(B=1, H=12, hd=64, bs=16, length=4096)  # one long sequence
 FLASH = dict(B=16, H=12, S=1024, D=64)   # GPT-2 125M training shapes
 TRAIN = dict(batch_size=16, seq_len=1024, warmup=2, steps=4)
 PREFILL = dict(B=4, S=512, H=12, hd=64, bs=16, num_blocks=1024, max_len=1024)
@@ -157,19 +162,31 @@ def make_tables(torch, gen, B, NB, used):
     return tables
 
 
-def decode_case(torch, dtype):
+def decode_case(torch, dtype, lengths=None):
     c = DECODE
     gen = torch.Generator(device="cuda").manual_seed(1)
     B, H, hd, bs = c["B"], c["H"], c["hd"], c["bs"]
     NB = c["max_len"] // bs
     # mixed lengths up to the model's 1024
-    lengths = [1024, 900, 700, 512, 333, 200, 64, 30]
+    lengths = lengths or [1024, 900, 700, 512, 333, 200, 64, 30]
     pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
                        device="cuda")
     tables = make_tables(torch, gen, B, NB, [-(-n // bs) for n in lengths])
     k, v = make_pool(torch, gen, dtype, c["num_blocks"], bs, H, hd)
     q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
     return dict(q=q, k=k, v=v, tables=tables, pos=pos, lengths=lengths)
+
+
+def long_decode_case(torch, dtype):
+    c = LONG_DECODE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, H, hd, bs, n = c["B"], c["H"], c["hd"], c["bs"], c["length"]
+    NB = n // bs
+    pos = torch.full((B,), n - 1, dtype=torch.int32, device="cuda")
+    tables = make_tables(torch, gen, B, NB, [NB] * B)
+    k, v = make_pool(torch, gen, dtype, B * NB + 1, bs, H, hd)
+    q = torch.randn(B, H, hd, generator=gen, device="cuda").to(dtype)
+    return dict(q=q, k=k, v=v, tables=tables, pos=pos, lengths=[n] * B)
 
 
 def prefill_case(torch, dtype, starts):
@@ -272,31 +289,44 @@ def kernels_phase(torch, quick: bool, kind=None) -> dict:
             return quantize_pool(k, v, kind) if kind else (k, v)
 
         kname = "paged_decode" + suffix
-        x = decode_case(torch, dtype)
-        args = (x["q"], *pool(x), x["tables"], x["pos"])
-        got = pa.paged_attention_cuda(*args)
-        torch.cuda.synchronize()
-        row = {"max_abs_err": compare(kname, got, paged_attention(*args),
-                                      name)}
-        if timed:
-            sq, sk, sv, mask = dense_sdpa_inputs(
-                torch, x["q"][:, None], *args[1:3], x["tables"],
-                x["pos"][:, None])
-            row["ms"] = timer(lambda: pa.paged_attention_cuda(*args))
-            row["plain_ms"] = timer(lambda: paged_attention(*args))
-            row["library_ms"] = timer(
-                lambda: F.scaled_dot_product_attention(sq, sk, sv,
-                                                       attn_mask=mask))
-            row["bound_ms"], row["bound_by"], ops = decode_bound(
-                x, ops_type, esize, kv_row)
-            row["tflops"] = tflops(ops, row["ms"])
-            log(f"{kname} {name}: {json.dumps(row)}")
-            del sq, sk, sv, mask
-        rows[(kname, name)] = row
-        args = (x["q"], *pool(x, DECODE["H"] // 2), x["tables"], x["pos"])
-        compare(f"{kname} G=2", pa.paged_attention_cuda(*args),
-                paged_attention(*args), name)
-        del x, args
+        # the serving shapes; one long sequence (bf16 q, bf16 or int8 pool)
+        cases = [((), decode_case)]
+        if dtype == torch.bfloat16 and kind in (None, "int8"):
+            cases.append((("long",), long_decode_case))
+        for case, make in cases:
+            x = make(torch, dtype)
+            args = (x["q"], *pool(x), x["tables"], x["pos"])
+            B, NB = x["tables"].shape
+            label = " ".join((kname,) + case)
+            got = pa.paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            nsplit = pa.SPLITS[kname]  # the count this launch ran with
+            log(f"{label} {name}: B {B}, lengths {x['lengths']}, table "
+                f"{NB} entries -> nsplit {nsplit}")
+            row = {"max_abs_err": compare(label, got,
+                                          paged_attention(*args), name),
+                   "nsplit": nsplit}
+            if timed:
+                sq, sk, sv, mask = dense_sdpa_inputs(
+                    torch, x["q"][:, None], *args[1:3], x["tables"],
+                    x["pos"][:, None])
+                row["ms"] = timer(lambda: pa.paged_attention_cuda(*args))
+                row["plain_ms"] = timer(lambda: paged_attention(*args))
+                row["library_ms"] = timer(
+                    lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                           attn_mask=mask))
+                row["bound_ms"], row["bound_by"], ops = decode_bound(
+                    x, ops_type, esize, kv_row)
+                row["tflops"] = tflops(ops, row["ms"])
+                log(f"{label} {name}: {json.dumps(row)}")
+                del sq, sk, sv, mask
+            rows[(kname, name) + case] = row
+            if not case:
+                args = (x["q"], *pool(x, DECODE["H"] // 2), x["tables"],
+                        x["pos"])
+                compare(f"{kname} G=2", pa.paged_attention_cuda(*args),
+                        paged_attention(*args), name)
+            del x, args
 
         kname = "paged_prefill" + suffix
         for label, starts in (("fresh", [0, 0, 0, 0]),
@@ -591,6 +621,73 @@ def profile_train(torch) -> None:
             f"x{count:<6d} {key[:110]}")
 
 
+def device_us(torch, fn, before, skip, iters=20) -> dict:
+    """Mean device time per call (µs, CUPTI) of each kernel ``fn``
+    launches, with ``before`` run ahead of every call; kernels named in
+    ``skip`` (those of ``before``) are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            before()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0 and e.key not in skip}
+
+
+def decode_sweep(torch) -> None:
+    """B4's device time by split count and L2 state, bf16, beside SDPA's
+    kernels on the same inputs. Cases: the serving decode case; its 8
+    sequences all at length 1 (the fixed cost of a call) or all at 128
+    (one 128-token range a block); one 4096-token sequence. L2 states
+    before each call: ``dirty`` (a 256 MB write, as the Timer's flush),
+    ``clean`` (a 256 MB read), ``warm`` (nothing)."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    caches = {"dirty": buf.zero_, "clean": buf.sum, "warm": lambda: None}
+    skip = set()
+    for before in caches.values():
+        skip |= set(device_us(torch, before, lambda: None, set()))
+    cases = {"serving": decode_case(torch, torch.bfloat16),
+             "len1": decode_case(torch, torch.bfloat16, [1] * 8),
+             "len128": decode_case(torch, torch.bfloat16, [128] * 8),
+             "long": long_decode_case(torch, torch.bfloat16)}
+    for name, x in cases.items():
+        args = (x["q"], x["k"], x["v"], x["tables"], x["pos"])
+        for n in (None, 1, 2, 4, 8):
+            for cache, before in caches.items():
+                if n and cache != "dirty":
+                    continue
+                us = device_us(torch, lambda: pa.paged_attention_cuda(
+                    *args, nsplit=n), before, skip)
+                log("decode sweep: " + json.dumps({
+                    "case": name, "kernel": "B4", "cache": cache,
+                    "nsplit": pa.SPLITS["paged_decode"], "auto": n is None,
+                    "us": sum(us.values())}))
+        if name in ("serving", "long"):
+            sq, sk, sv, mask = dense_sdpa_inputs(
+                torch, x["q"][:, None], *args[1:3], x["tables"],
+                x["pos"][:, None])
+            for cache, before in caches.items():
+                us = device_us(torch, lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=mask), before, skip)
+                log("decode sweep: " + json.dumps({
+                    "case": name, "kernel": "SDPA", "cache": cache,
+                    "us": sum(us.values()),
+                    "kernels": {k[:60]: round(t, 3) for k, t in us.items()}}))
+    del buf, cases
+
+
 # ---------------------------------------------------------------- engine
 
 def serve(torch, engine, prompts, params) -> dict:
@@ -683,6 +780,11 @@ def engine_phase(torch, quant=None) -> dict:
         f"{nbytes}; launches {launches} (expected {want})")
     if launches != want or min(prefill_calls, decode_steps) == 0:
         raise AssertionError(f"launch counts {launches} != {want}")
+    per_step = launches["paged_decode" + suffix] / decode_steps
+    log(f"{tag}: {per_step:g} paged_decode{suffix} launches per decode step "
+        f"(expected {cfg.n_layer}, one per layer)")
+    if per_step != cfg.n_layer:
+        raise AssertionError(f"{per_step} B4 launches per decode step")
     log(f"{tag} first tokens: {[o[:4] for o in outs]}")
     return {"engine": engine, "launches": launches, "prompts": prompts,
             "params": params, "bytes": nbytes,
@@ -712,6 +814,11 @@ def profile_phase(torch, eng) -> None:
     for us, count, key in rows[:20]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
             f"x{count:<6d} {key[:110]}")
+    b4 = [(us, count) for us, count, key in rows if "paged_decode" in key]
+    b4_ms, b4_calls = sum(r[0] for r in b4) / 1e3, sum(r[1] for r in b4)
+    log(f"profile [{quant or 'bf16'}]: B4 in the engine {b4_ms:.3f} ms over "
+        f"{b4_calls} calls = {b4_ms / max(b4_calls, 1):.4f} ms a call "
+        f"({100 * b4_ms / busy_ms:.1f}% of device busy)")
     # the host side: device launches per step, and host ops by self CPU
     # time (profiler overhead included, so read the shares, not the ms)
     nsteps = sum(len(v) for v in run["steps"].values())
@@ -831,6 +938,7 @@ def main() -> int:
     base_bytes = eng["bytes"]
     backends_phase(torch, eng["engine"])
     if args.profile:
+        decode_sweep(torch)
         profile_train(torch)
         profile_phase(torch, eng)
     for kind in QUANT_KINDS:
@@ -870,6 +978,10 @@ def main() -> int:
         })
         if case:
             kernels[-1]["ragged"] = rows[(name, "bfloat16", "ragged")]
+        else:  # B4: its split-K ranges, and the long sequence where timed
+            kernels[-1]["nsplit"] = r["nsplit"]
+            if (name, "bfloat16", "long") in rows:
+                kernels[-1]["long"] = rows[(name, "bfloat16", "long")]
     for name, replaces, source in (
         ("flash_fwd", "ray_tpu/ops/attention.py:129", "flash_fwd.cu"),
         ("flash_bwd_dkv", "ray_tpu/ops/attention.py:288", "flash_bwd.cu"),

@@ -1,7 +1,8 @@
-// Shared device code of the two paged-attention kernels
-// (paged_decode.cu, paged_prefill.cu): the block-table walk over the paged
-// KV pool with a base-2 online softmax, for a tile of R query rows that all
-// attend ONE kv head of ONE sequence.
+// Device code of the paged-attention kernels: the type helpers both
+// paged_decode.cu (B4) and paged_prefill.cu (B5) use, and the CUDA-core
+// block-table walk over the paged KV pool with a base-2 online softmax
+// that B5 runs for an f32 q and for a bf16 q with a head wider than 128,
+// for a tile of R query rows that all attend ONE kv head of ONE sequence.
 //
 // Pool layout (one layer): [num_blocks, block_size, n_kv_head, head_dim],
 // row-major, so one token's head_dim values of one kv head are contiguous

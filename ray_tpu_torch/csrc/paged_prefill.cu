@@ -51,15 +51,20 @@
 // the f32 dequantize-then-multiply order that costs fp16's 2^-11 relative
 // rounding of each p * vscale, under the bf16 tolerance.
 //
-// f32 q keeps the first version's CUDA-core walk (paged_common.cuh, shared
-// with the decode kernel B4); the f32 attention it computes has no
-// tensor-core form short of TF32, which would round the inputs.
+// f32 q keeps the first version's CUDA-core walk (paged_common.cuh); the
+// f32 attention it computes has no tensor-core form short of TF32, which
+// would round the inputs. A bf16 q with a head wider than 128 (up to 256)
+// takes the same walk instantiated for bf16, with the TPU's bf16 rounding
+// of s - m and exp2 (f32 softmax under a quantized pool): the tensor-core
+// tiles keep a row's whole head in registers, which 256 columns of
+// accumulator and Q fragments would overflow.
 #include "mma_common.cuh"
 #include "paged_common.cuh"
 
 namespace {
 
-// ---- f32 q: the CUDA-core walk of paged_common.cuh
+// ---- f32 q, and bf16 q with hd > 128: the CUDA-core walk of
+// paged_common.cuh
 
 constexpr int kRows = 32;
 
@@ -114,21 +119,21 @@ __global__ void __launch_bounds__(paged::kThreads)
                                bs, Hkv, kvh, window, t, out);
 }
 
-template <typename KV>
-int launch_f32(const void* q, const void* k, const void* v, const float* ks,
-               const float* vs, const int* tables, const int* positions,
-               void* out, int B, int S, int Hq, int Hkv, int hd, int bs,
-               int NB, float qscale, int window, cudaStream_t stream) {
+// Q: q's type (float, or __nv_bfloat16 for heads wider than 128)
+template <typename Q, typename KV>
+int launch_walk(const void* q, const void* k, const void* v, const float* ks,
+                const float* vs, const int* tables, const int* positions,
+                void* out, int B, int S, int Hq, int Hkv, int hd, int bs,
+                int NB, float qscale, int window, cudaStream_t stream) {
   const size_t bytes = paged::smem_bytes(kRows, hd, bs, sizeof(KV));
-  cudaError_t err =
-      mma::allow_smem(paged_prefill_kernel<float, KV>, bytes);
+  cudaError_t err = mma::allow_smem(paged_prefill_kernel<Q, KV>, bytes);
   if (err != cudaSuccess) return (int)err;
   const int rows = S * (Hq / Hkv);
   dim3 grid((rows + kRows - 1) / kRows, Hkv, B);
-  paged_prefill_kernel<float, KV><<<grid, paged::kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const KV*>(k),
+  paged_prefill_kernel<Q, KV><<<grid, paged::kThreads, bytes, stream>>>(
+      static_cast<const Q*>(q), static_cast<const KV*>(k),
       static_cast<const KV*>(v), ks, vs, tables, positions,
-      static_cast<float*>(out), S, Hq, Hkv, hd, bs, NB, qscale, window);
+      static_cast<Q*>(out), S, Hq, Hkv, hd, bs, NB, qscale, window);
   return (int)cudaGetLastError();
 }
 
@@ -397,7 +402,8 @@ int launch_mma(const void* q, const void* k, const void* v, const float* ks,
   return (int)cudaGetLastError();
 }
 
-// head dims pad to the next instantiated tile width
+// head dims up to 128 pad to the next instantiated tile width; wider
+// heads take the CUDA-core walk
 template <typename KV>
 int launch_bf16(const void* q, const void* k, const void* v, const float* ks,
                 const float* vs, const int* tables, const int* positions,
@@ -409,17 +415,21 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* ks,
   if (hd <= 64)
     return launch_mma<64, KV>(q, k, v, ks, vs, tables, positions, out, B, S,
                               Hq, Hkv, hd, bs, NB, qscale, window, s);
-  return launch_mma<128, KV>(q, k, v, ks, vs, tables, positions, out, B, S,
-                             Hq, Hkv, hd, bs, NB, qscale, window, s);
+  if (hd <= 128)
+    return launch_mma<128, KV>(q, k, v, ks, vs, tables, positions, out, B,
+                               S, Hq, Hkv, hd, bs, NB, qscale, window, s);
+  return launch_walk<__nv_bfloat16, KV>(q, k, v, ks, vs, tables, positions,
+                                        out, B, S, Hq, Hkv, hd, bs, NB,
+                                        qscale, window, s);
 }
 
 }  // namespace
 
 // dtype (q, out): 0 = float32, 1 = bfloat16. kvtype (pool): 0 = q's type,
 // 1 = int8, 2 = fp8-e4m3; a quantized pool needs its two scale planes and
-// hd % 16 == 0. hd: a multiple of 8, up to 256 with an f32 q and up to 128
-// with a bf16 q (the tensor-core tiles keep a row's head in registers).
-// window <= 0 = none. Returns a cudaError_t (0 = launched).
+// hd % 16 == 0. hd: a multiple of 8 up to 256 (a bf16 q takes the tensor
+// cores up to 128 and the CUDA-core walk above). window <= 0 = none.
+// Returns a cudaError_t (0 = launched).
 extern "C" int paged_prefill(const void* q, const void* k, const void* v,
                              const float* kscale, const float* vscale,
                              const int* tables, const int* positions,
@@ -435,19 +445,19 @@ extern "C" int paged_prefill(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     switch (kvtype) {
       case 0:
-        return launch_f32<float>(q, k, v, kscale, vscale, tables, positions,
-                                 out, B, S, Hq, Hkv, hd, bs, NB, qscale,
-                                 window, s);
-      case 1:
-        return launch_f32<int8_t>(q, k, v, kscale, vscale, tables, positions,
-                                  out, B, S, Hq, Hkv, hd, bs, NB, qscale,
-                                  window, s);
-      case 2:
-        return launch_f32<__nv_fp8_e4m3>(q, k, v, kscale, vscale, tables,
+        return launch_walk<float, float>(q, k, v, kscale, vscale, tables,
                                          positions, out, B, S, Hq, Hkv, hd,
                                          bs, NB, qscale, window, s);
+      case 1:
+        return launch_walk<float, int8_t>(q, k, v, kscale, vscale, tables,
+                                          positions, out, B, S, Hq, Hkv, hd,
+                                          bs, NB, qscale, window, s);
+      case 2:
+        return launch_walk<float, __nv_fp8_e4m3>(
+            q, k, v, kscale, vscale, tables, positions, out, B, S, Hq, Hkv,
+            hd, bs, NB, qscale, window, s);
     }
-  } else if (dtype == 1 && hd <= 128) {
+  } else if (dtype == 1) {
     switch (kvtype) {
       case 0:
         return launch_bf16<__nv_bfloat16>(q, k, v, kscale, vscale, tables,

@@ -13,6 +13,13 @@ kernels (counterpart of ``ray_tpu/ops/attention.py``).
   for B1, bf16 inputs run on the tensor cores, f32 inputs on the CUDA
   cores.
 
+The kernels are built for head dims 32, 64 and 128. A narrower head
+(any D up to 128) runs through ``head_padded``: q, k, v (and o, dO) are
+zero-padded along D to the next built width and the outputs and
+gradients sliced back. Zero columns add nothing to q·kᵀ and give zero
+output and gradient columns, and the softmax scale is passed in (1/√D of
+the true D), so the padding is exact. D > 128 raises.
+
 Beside each is its plain version (``flash_forward_reference``,
 ``flash_bwd_dkv_reference``, ``flash_bwd_dq_reference``, and
 ``flash_backward_reference`` for both): dense, untiled, with the TPU
@@ -188,8 +195,12 @@ def _check(name, tensors):
             f"{name}: q, k, v (and dO) must be [B, H, S, D] of one shape, got "
             f"{[tuple(t.shape) for t in tensors[:4]]}"
         )
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {q.shape[-1]} not in {HEAD_DIMS}")
+    if q.shape[-1] > HEAD_DIMS[-1]:
+        raise ValueError(
+            f"{name}: head dim {q.shape[-1]} is above {HEAD_DIMS[-1]}, the "
+            f"widest the kernels are built for (narrower heads pad to one of "
+            f"{HEAD_DIMS})"
+        )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all tensors must be contiguous")
 
@@ -198,11 +209,41 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def head_padded(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every 4-d ``[B, H, S, D]`` argument
+    zero-padded along D to the next width of ``HEAD_DIMS``, and every 4-d
+    result sliced back to D (3-d ones, lse and delta, pass as they are).
+    The caller passes the scale of the true D."""
+    D = args[0].shape[-1]
+    width = next((w for w in HEAD_DIMS if w >= D), None)
+    if width is None:
+        raise ValueError(
+            f"flash attention kernels: head dim {D} is above "
+            f"{HEAD_DIMS[-1]}, the widest they are built for"
+        )
+
+    def pad(t):
+        if isinstance(t, torch.Tensor) and t.dim() == 4:
+            return torch.nn.functional.pad(t, (0, width - D))
+        return t
+
+    def cut(t):
+        if isinstance(t, torch.Tensor) and t.dim() == 4:
+            return t[..., :D].contiguous()
+        return t
+
+    out = fn(*(pad(a) for a in args), **kw)
+    return tuple(cut(t) for t in out) if isinstance(out, tuple) else cut(out)
+
+
 def flash_forward_cuda(q, k, v, *, causal: bool, scale: float,
                        save_lse: bool = True):
     """Kernel B1; same contract as ``flash_forward_reference`` (lse is None
     unless ``save_lse``)."""
     _check("flash_fwd", (q, k, v))
+    if q.shape[-1] not in HEAD_DIMS:
+        return head_padded(flash_forward_cuda, q, k, v, causal=causal,
+                           scale=scale, save_lse=save_lse)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_fwd: q, k and v must start on a 16-byte "
                          "boundary (the kernel copies them in 16-byte pieces)")
@@ -237,6 +278,9 @@ def flash_bwd_dkv_cuda(q, k, v, lse, delta, do, *, causal: bool,
                        scale: float):
     """Kernel B2; same contract as ``flash_bwd_dkv_reference``."""
     _check_bwd("flash_bwd_dkv", q, k, v, lse, delta, do)
+    if q.shape[-1] not in HEAD_DIMS:
+        return head_padded(flash_bwd_dkv_cuda, q, k, v, lse, delta, do,
+                           causal=causal, scale=scale)
     B, H, S, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
@@ -256,6 +300,9 @@ def flash_bwd_dq_cuda(q, k, v, lse, delta, do, *, causal: bool,
                       scale: float):
     """Kernel B3; same contract as ``flash_bwd_dq_reference``."""
     _check_bwd("flash_bwd_dq", q, k, v, lse, delta, do)
+    if q.shape[-1] not in HEAD_DIMS:
+        return head_padded(flash_bwd_dq_cuda, q, k, v, lse, delta, do,
+                           causal=causal, scale=scale)
     B, H, S, D = q.shape
     dq = torch.empty_like(q)
     if q.numel() == 0:
@@ -275,6 +322,9 @@ def flash_backward_cuda(q, k, v, o, lse, do, *, causal: bool, scale: float):
     """Kernels B2 then B3; same contract as ``flash_backward_reference``."""
     if not o.is_cuda or o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError("flash_bwd runs only on CUDA tensors, o like q")
+    if q.shape[-1] not in HEAD_DIMS:  # pad once for both kernels
+        return head_padded(flash_backward_cuda, q, k, v, o, lse, do,
+                           causal=causal, scale=scale)
     delta = attention_delta(o, do)
     kw = dict(causal=causal, scale=scale)
     dk, dv = flash_bwd_dkv_cuda(q, k, v, lse, delta, do, **kw)

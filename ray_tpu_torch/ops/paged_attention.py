@@ -2,11 +2,16 @@
 (counterpart of ``ray_tpu/ops/paged_attention.py``).
 
 - ``paged_attention_cuda`` launches ``csrc/paged_decode.cu`` (kernel B4,
-  replacing ``_paged_decode_kernel``): one query token per sequence.
+  replacing ``_paged_decode_kernel``): one query token per sequence, as
+  split-K flash-decoding in one launch. Each sequence's table is split
+  into ``decode_splits(...)`` ranges, one block each, combined inside the
+  launch by a thread-block cluster; the count comes from shapes and the
+  card's SM count alone, so a call costs no device sync.
 - ``paged_prefill_attention_cuda`` launches ``csrc/paged_prefill.cu``
   (kernel B5, replacing ``_paged_prefill_kernel``): a chunk of queries at
-  true positions, optional sliding window. A bf16 q runs on the tensor
-  cores (head_dim up to 128), an f32 q on the CUDA cores.
+  true positions, optional sliding window. A bf16 q with head_dim up to
+  128 runs on the tensor cores; an f32 q, and a bf16 q with head_dim
+  129-256, run the CUDA-core walk.
 
 Both take the same arguments as their plain versions in
 ``ops/kv_cache.py``. A pool of ``QuantizedKV`` layers (int8 or fp8-e4m3
@@ -17,7 +22,8 @@ A wrapper checks device, dtype, shape and contiguity
 must lie in the pool),
 allocates the output with ``torch.empty``, launches on the current stream
 and raises if the launch returns a CUDA error; it never falls back to the
-plain version. Each counts its launches in ``LAUNCHES``.
+plain version. Each counts its launches in ``LAUNCHES``; B4's wrapper
+also keeps the split count it last launched with in ``SPLITS``.
 
 ``decode_attention`` / ``prefill_attention`` are what the model calls.
 Their ``backend`` knob is ``auto | torch | cuda``; ``auto`` picks the
@@ -25,6 +31,7 @@ kernel for a CUDA tensor and the plain version for a CPU tensor.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -41,10 +48,18 @@ LAUNCHES = {"paged_decode": 0, "paged_decode_int8": 0, "paged_decode_fp8": 0,
             "paged_prefill": 0, "paged_prefill_int8": 0,
             "paged_prefill_fp8": 0}
 
+# the split count of B4's last launch, by LAUNCHES key
+SPLITS = {name: 0 for name in LAUNCHES if name.startswith("paged_decode")}
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# widest head B5 takes with a bf16 q (its tensor-core tiles are built for
-# head dims 32, 64 and 128; narrower heads pad to the next one)
-BF16_PREFILL_MAX_HEAD_DIM = 128
+# B4's split-K: at most a portable thread-block cluster of ranges (the C
+# entry refuses more: kMaxSplits in csrc/paged_decode.cu is this number),
+# enough blocks for a few per SM of the card, and ranges of at least 64
+# tokens (a shorter range saves less than the cluster's barriers and
+# combine cost)
+DECODE_MAX_SPLITS = 8
+DECODE_BLOCKS_PER_SM = 4
+DECODE_MIN_SPLIT_TOKENS = 64
 # pool storage codes of the C entry points: 0 = q's dtype, else quantized
 _KV_CODES = {torch.int8: (1, "_int8"), torch.float8_e4m3fn: (2, "_fp8")}
 
@@ -52,6 +67,28 @@ _KV_CODES = {torch.int8: (1, "_int8"), torch.float8_e4m3fn: (2, "_fp8")}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def decode_splits(B: int, Hkv: int, NB: int, block_size: int,
+                  num_sms: int) -> int:
+    """Ranges of table entries B4 splits each (sequence, kv head) into on a
+    card of ``num_sms`` SMs: the smallest power of two that gives
+    ``DECODE_BLOCKS_PER_SM`` blocks an SM, at most ``DECODE_MAX_SPLITS``,
+    one table entry and ``DECODE_MIN_SPLIT_TOKENS`` tokens a range. Shapes
+    only, never the positions."""
+    target = DECODE_BLOCKS_PER_SM * num_sms
+    n = 1
+    while (2 * n <= DECODE_MAX_SPLITS and B * Hkv * n < target
+           and 2 * n <= NB
+           and NB * block_size >= 2 * n * DECODE_MIN_SPLIT_TOKENS):
+        n *= 2
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name, q, k_layer, v_layer, block_tables, positions, q_dims):
@@ -137,9 +174,11 @@ def paged_attention_cuda(
     positions: torch.Tensor,
     *,
     scale: float | None = None,
+    nsplit: int | None = None,
 ) -> torch.Tensor:
     """Decode attention through kernel B4; same contract as
-    ``ops/kv_cache.paged_attention``."""
+    ``ops/kv_cache.paged_attention``. ``nsplit`` (1-8) overrides the split
+    count ``decode_splits`` picks, for measuring the choice."""
     key, code, pool = _check("paged_decode", q, k_layer, v_layer,
                              block_tables, positions, 3)
     B, Hq, hd = q.shape
@@ -148,18 +187,22 @@ def paged_attention_cuda(
     out = torch.empty_like(q)
     if B == 0:
         return out
+    NB = block_tables.shape[1]
+    if nsplit is None:
+        nsplit = decode_splits(B, Hkv, NB, bs, sm_count(q.device.index))
     fn = _build.bind("paged_decode", "paged_decode",
-                     "p" * 8 + "i" * 6 + "fiip")
+                     "p" * 8 + "i" * 7 + "fiip")
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), *pool,
             block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, hd, bs, block_tables.shape[1],
+            B, Hq, Hkv, hd, bs, NB, nsplit,
             scale * LOG2E, _DTYPE_CODES[q.dtype], code,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.raise_on("paged_decode", key, rc)
     LAUNCHES[key] += 1
+    SPLITS[key] = nsplit
     return out
 
 
@@ -180,12 +223,6 @@ def paged_prefill_attention_cuda(
     B, S, Hq, hd = q.shape
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if q.dtype == torch.bfloat16 and hd > BF16_PREFILL_MAX_HEAD_DIM:
-        raise ValueError(
-            f"{key}: a bfloat16 q takes the tensor-core tiles, which hold a "
-            f"row's head in registers and are built for head_dim up to "
-            f"{BF16_PREFILL_MAX_HEAD_DIM}; got {hd}"
-        )
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     _, bs, Hkv, _ = k_layer.shape
     out = torch.empty_like(q)

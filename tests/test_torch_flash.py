@@ -156,6 +156,36 @@ def test_flash_lse_is_base2_logsumexp():
     assert (lse - want).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("D,causal", [(16, True), (48, True), (48, False)])
+def test_head_padded_flash_matches_unpadded(D, causal):
+    """The kernels' wrappers run a head dim the kernels are not built for
+    (16: GPT-2 tiny; 48) zero-padded to the next built width (32, 64) at
+    the TRUE scale 1/sqrt(D), then sliced back. Around the plain versions,
+    that gives the unpadded output, lse and gradients within f32 rounding
+    (1e-6); the same padded run at the padded width's scale does not."""
+    from ray_tpu_torch.ops import attention as at
+
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(D, 2, 3, 3, 40, D))
+    scale = 1 / math.sqrt(D)
+    kw = dict(causal=causal, scale=scale)
+    o, lse = at.flash_forward_reference(q, k, v, **kw)
+    po, plse = at.head_padded(at.flash_forward_reference, q, k, v, **kw)
+    assert po.shape == o.shape and plse.shape == lse.shape
+    assert (po - o).abs().max().item() <= 1e-6
+    assert (plse - lse).abs().max().item() <= 1e-6
+    grads = at.flash_backward_reference(q, k, v, o, lse, do, **kw)
+    pgrads = at.head_padded(at.flash_backward_reference, q, k, v, o, lse,
+                            do, **kw)
+    for got, want in zip(pgrads, grads):
+        assert got.shape == want.shape and got.is_contiguous()
+        assert (got - want).abs().max().item() <= 1e-6
+    width = next(w for w in at.HEAD_DIMS if w >= D)
+    wrong, _ = at.head_padded(at.flash_forward_reference, q, k, v,
+                              causal=causal, scale=1 / math.sqrt(width))
+    assert (wrong - o).abs().max().item() > 1e-3
+
+
 def test_flash_wrappers_refuse_cpu_tensors():
     from ray_tpu_torch.ops import attention as at
 

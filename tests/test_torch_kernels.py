@@ -14,6 +14,7 @@ and the output rounding; B5's tensor-core path with a bf16 q adds fp16's
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -125,19 +126,70 @@ def test_prefill_kernel_matches_plain(cuda, dtype, S, starts, lens, gqa,
 
 
 def test_prefill_wrapper_refuses_wide_bf16_heads(cuda):
+    """Heads above 256 and heads that are not a multiple of 8 are refused
+    before any launch; a bf16 q at 256, and an f32 q at 256 (both on B5's
+    CUDA-core walk), run and match their plain versions."""
     from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
 
+    before = dict(pa.LAUNCHES)
+    for hd in (264, 100):
+        q, k, v, tables, pos, _ = _prefill_inputs(
+            cuda, torch.bfloat16, [0], 8, [8], 1, 1, hd, 16)
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
+    assert pa.LAUNCHES == before
     q, k, v, tables, pos, _ = _prefill_inputs(
         cuda, torch.bfloat16, [0], 8, [8], 1, 1, 256, 16)
-    before = dict(pa.LAUNCHES)
-    with pytest.raises(ValueError, match="head_dim up to 128"):
-        pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
-    assert pa.LAUNCHES == before
-    # an f32 q keeps the CUDA-core walk, which takes heads up to 256
-    got = pa.paged_prefill_attention_cuda(q.float(), k.float(), v.float(),
-                                          tables, pos)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = (q.to(dtype), k.to(dtype), v.to(dtype), tables, pos)
+        got = pa.paged_prefill_attention_cuda(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, paged_prefill_attention(*args), dtype)
+    assert pa.LAUNCHES["paged_prefill"] == before["paged_prefill"] + 2
+
+
+# B5 with head dims wider than the tensor-core tiles (129-256): the
+# CUDA-core walk, instantiated for a bf16 q and for an f32 q, chunks of 32
+# rows, any block size
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,starts,lens,gqa,window,bs,hd", [
+    (45, [0, 5, 40], [45, 30, 12], 1, None, 16, 256),
+    (45, [0, 5, 40], [45, 30, 12], 2, 24, 16, 256),
+    (70, [0, 100, 250], [70, 70, 1], 4, None, 8, 136),
+    (33, [17, 64, 3], [33, 30, 33], 1, 7, 32, 192),
+])
+def test_wide_head_prefill_matches_plain(cuda, dtype, S, starts, lens, gqa,
+                                        window, bs, hd):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
+
+    q, k, v, tables, pos, valid = _prefill_inputs(
+        cuda, dtype, starts, S, lens, 2, gqa, hd, bs)
+    before = pa.LAUNCHES["paged_prefill"]
+    got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos, window=window)
     torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
+    assert pa.LAUNCHES["paged_prefill"] == before + 1
+    want = paged_prefill_attention(q, k, v, tables, pos, window=window)
+    _assert_close(got[valid], want[valid], dtype)
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_head_quantized_prefill_matches_plain(cuda, kind, dtype):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
+
+    q, k, v, tables, pos, valid = _prefill_inputs(
+        cuda, torch.float32, [0, 5, 40], 45, [45, 30, 12], 2, 2, 256, 16)
+    k, v = _quantized(k, v, kind)
+    q = q.to(dtype)
+    before = pa.LAUNCHES[f"paged_prefill_{kind}"]
+    got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES[f"paged_prefill_{kind}"] == before + 1
+    want = paged_prefill_attention(q, k, v, tables, pos)
+    _assert_close(got[valid], want[valid], dtype)
 
 
 # ---- the quantized variants of B4 and B5: int8 / fp8-e4m3 pools with f32
@@ -442,3 +494,246 @@ def test_flash_wrappers_refuse_misaligned_tensors(cuda):
         with pytest.raises(ValueError, match="16-byte"):
             at.flash_bwd_dq_cuda(*args, causal=True, scale=1.0)
     assert at.LAUNCHES == before
+
+
+# ---- B4/B4q as split-K flash-decoding: ranges of table entries, one block
+# each, combined inside the launch by a thread-block cluster
+
+
+def _decode_inputs(dev, dtype, lengths, Hkv, G, hd, bs, NB, seed):
+    gen, k, v, tables = _case(dev, dtype, len(lengths), Hkv, G, hd, bs, NB,
+                              [-(-n // bs) for n in lengths], seed)
+    q = torch.randn(len(lengths), Hkv * G, hd, generator=gen,
+                    device=dev).to(dtype)
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                       device=dev)
+    return q, k, v, tables, pos
+
+
+def _boundary_lengths(B, Hkv, bs, NB):
+    """Lengths at each split boundary +- 1 (the split count is the
+    wrapper's, from these shapes), length 1 and a full table."""
+    from ray_tpu_torch.ops.paged_attention import decode_splits, sm_count
+
+    span = -(-NB // decode_splits(B, Hkv, NB, bs, sm_count(0))) * bs
+    lengths = [1, span - 1, span, span + 1, 2 * span - 1, 2 * span + 1,
+               NB * bs]
+    assert len(lengths) == B
+    return [min(n, NB * bs) for n in lengths]
+
+
+def _check_decode(dev, dtype, q, k, v, tables, pos, key):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_attention
+
+    before = dict(pa.LAUNCHES)
+    got = pa.paged_attention_cuda(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    assert {n: pa.LAUNCHES[n] - before[n] for n in before
+            if pa.LAUNCHES[n] != before[n]} == {key: 1}
+    _assert_close(got, paged_attention(q, k, v, tables, pos), dtype)
+
+
+# block sizes 8, 16, 32 at G 1, 2, 4, 8; head dims 64, 128, 256; groups
+# that are not a power of two (3) or wider than the 8 rows a pass holds
+# (12); head dims that leave lanes idle (40) or use one lane a row (8)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,G,hd,NB", [
+    (16, 1, 64, 64), (8, 2, 64, 64), (32, 4, 64, 32), (16, 8, 64, 64),
+    (16, 1, 128, 64), (8, 4, 128, 48), (16, 2, 256, 64), (32, 8, 256, 32),
+    (16, 3, 64, 64), (16, 12, 128, 40), (16, 1, 40, 64), (32, 2, 8, 20),
+])
+def test_split_decode_kernel_matches_plain(cuda, dtype, bs, G, hd, NB):
+    Hkv = 2
+    lengths = _boundary_lengths(7, Hkv, bs, NB)
+    args = _decode_inputs(cuda, dtype, lengths, Hkv, G, hd, bs, NB,
+                          seed=bs + G + hd)
+    _check_decode(cuda, dtype, *args, "paged_decode")
+
+
+# long contexts that really split: several ring tiles per range
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,Hkv,G,hd,bs,NB", [
+    ([4096], 12, 1, 64, 16, 256),
+    ([4096, 2500], 2, 4, 128, 16, 256),
+    ([4000, 17], 1, 8, 256, 32, 128),
+])
+def test_long_context_decode_kernel_matches_plain(cuda, dtype, lengths, Hkv,
+                                                  G, hd, bs, NB):
+    args = _decode_inputs(cuda, dtype, lengths, Hkv, G, hd, bs, NB, seed=21)
+    _check_decode(cuda, dtype, *args, "paged_decode")
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,Hkv,G,hd,bs,NB", [
+    (None, 2, 1, 64, 16, 64),
+    (None, 2, 4, 128, 8, 64),
+    (None, 2, 2, 256, 32, 32),
+    ([4096], 12, 1, 64, 16, 256),
+    ([4096, 1000], 2, 8, 128, 16, 256),
+])
+def test_quantized_split_decode_kernel_matches_plain(cuda, kind, dtype,
+                                                     lengths, Hkv, G, hd, bs,
+                                                     NB):
+    lengths = lengths or _boundary_lengths(7, Hkv, bs, NB)
+    q, k, v, tables, pos = _decode_inputs(cuda, torch.float32, lengths, Hkv,
+                                          G, hd, bs, NB, seed=hd + G)
+    k, v = _quantized(k, v, kind)
+    _check_decode(cuda, dtype, q.to(dtype), k, v, tables, pos,
+                  f"paged_decode_{kind}")
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 5, 8])
+def test_decode_kernel_at_every_split_count(cuda, nsplit):
+    """The split count forced past the wrapper's choice: the result stays
+    within TOL of the plain version, and the wrapper records the count it
+    launched with."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_attention
+
+    q, k, v, tables, pos = _decode_inputs(
+        cuda, torch.bfloat16, [1024, 700, 129, 1], 4, 2, 64, 16, 64, seed=8)
+    got = pa.paged_attention_cuda(q, k, v, tables, pos, nsplit=nsplit)
+    torch.cuda.synchronize()
+    assert pa.SPLITS["paged_decode"] == nsplit
+    _assert_close(got, paged_attention(q, k, v, tables, pos), torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+def test_decode_kernel_is_deterministic(cuda, kind):
+    """Two calls on the same inputs give the same bits: the cluster
+    combines the ranges in rank order, no atomics."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, pos = _decode_inputs(
+        cuda, torch.float32, [4096, 1500, 700, 1], 12, 2, 64, 16, 256, seed=5)
+    if kind:
+        k, v = _quantized(k, v, kind)
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    q = q.bfloat16()
+    runs = [pa.paged_attention_cuda(q, k, v, tables, pos) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+def test_decode_kernel_is_one_launch(cuda, kind):
+    """One call is one kernel on the device (no combine pass, no memset),
+    and it records into a CUDA graph (no host sync, no allocation that
+    depends on data) whose replay gives the eager result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, tables, pos = _decode_inputs(
+        cuda, torch.float32, [1024, 900, 30, 512], 12, 1, 64, 16, 64, seed=6)
+    if kind:
+        k, v = _quantized(k, v, kind)
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    q = q.bfloat16()
+    want = pa.paged_attention_cuda(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pa.paged_attention_cuda(q, k, v, tables, pos)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "paged_decode" in kernels[0][0], kernels
+
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pa.paged_attention_cuda(q, k, v, tables, pos)  # warm the binding
+        with torch.cuda.graph(graph, stream=stream):
+            out = pa.paged_attention_cuda(q, k, v, tables, pos)
+    torch.cuda.current_stream().wait_stream(stream)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+# ---- Queue C: the flash kernels at head dims they are not built for pad
+# to the next built width (exact), and refuse above 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 48, 80])
+def test_flash_kernels_pad_narrow_heads(cuda, dtype, D):
+    from ray_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    q, k, v, do = (torch.randn(2, 3, 100, D, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    kw = dict(causal=True, scale=D ** -0.5)
+    before = dict(at.LAUNCHES)
+    o, lse = at.flash_forward_cuda(q, k, v, **kw)
+    o_ref, lse_ref = at.flash_forward_reference(q, k, v, **kw)
+    grads = at.flash_backward_cuda(q, k, v, o_ref, lse_ref, do, **kw)
+    refs = at.flash_backward_reference(q, k, v, o_ref, lse_ref, do, **kw)
+    torch.cuda.synchronize()
+    assert {n: at.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    _assert_close(o, o_ref, dtype)
+    _assert_close(lse, lse_ref, dtype)
+    for got, want in zip(grads, refs):
+        assert got.shape == want.shape
+        _assert_close(got, want, dtype)
+
+
+def test_flash_kernels_refuse_heads_above_128(cuda):
+    from ray_tpu_torch.ops import attention as at
+
+    x = torch.zeros(1, 2, 8, 160, device=cuda, dtype=torch.bfloat16)
+    before = dict(at.LAUNCHES)
+    with pytest.raises(ValueError, match="above 128"):
+        at.flash_forward_cuda(x, x, x, causal=True, scale=1.0)
+    assert at.LAUNCHES == before
+
+
+def test_gpt_tiny_trains_on_cuda_with_padded_heads(cuda):
+    """GPTConfig.tiny() (head dim 16) through B1-B3 with padded heads: the
+    loss and every gradient of one step against the plain backend on the
+    same weights, at the training phase's bars (loss 1e-2, gradient 2e-2
+    relative L2), then a few AdamW steps with a falling loss."""
+    from ray_tpu_torch.benchmarks.gpt_mfu import (
+        bench_batch,
+        make_optimizer,
+        train_step,
+    )
+    from ray_tpu_torch.models.gpt import GPT, GPTConfig, gpt_init
+    from ray_tpu_torch.ops import attention as at
+
+    cfg = dataclasses.replace(GPTConfig.tiny(), attention_backend="cuda")
+    assert cfg.head_dim not in at.HEAD_DIMS
+    models = {"cuda": gpt_init(cfg, seed=0, device=cuda, train=True)}
+    models["torch"] = GPT(dataclasses.replace(cfg, attention_backend="torch"),
+                          cuda, train=True)
+    models["torch"].load_state_dict(models["cuda"].state_dict())
+    batch = bench_batch(cfg, 2, 64, 5, cuda)
+    loss, grads = {}, {}
+    before = dict(at.LAUNCHES)
+    for name, m in models.items():
+        value = m.loss(batch)
+        value.backward()
+        loss[name] = value.item()
+        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+    assert {n: at.LAUNCHES[n] - before[n] for n in before} == dict.fromkeys(
+        before, cfg.n_layer)
+    assert abs(loss["cuda"] - loss["torch"]) <= 1e-2
+    for n, want in grads["torch"].items():
+        rel = ((grads["cuda"][n] - want).float().norm()
+               / want.float().norm().clamp(min=1e-30)).item()
+        assert rel <= 2e-2, (n, rel)
+    model = models["cuda"]
+    model.zero_grad(set_to_none=True)
+    opt = make_optimizer(model)
+    losses = [train_step(model, opt, batch).item() for _ in range(4)]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
