@@ -19,6 +19,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    serving shapes (bf16 q; windowed, G = 2 and f32-q cases for agreement);
    B4 and its int8 variant also on one 4096-token sequence (bf16 q), with
    the number of split-K ranges the wrapper launched printed for each case;
+   for agreement only, B4/B5 (and their quantized variants) at head dims
+   100 and 72 (pools padded to 16-byte rows) and B1-B3 at head dims 160
+   (padded to 256) and 256;
 4. trains GPT-2 125M at full width and depth (bf16 activations, f32
    masters, seeded random weights, one fixed [16, 1025] batch) through the
    port's ``run_gpt_bench``: the loss must stay finite and fall, and each
@@ -26,24 +29,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    weights and a [2, 1025] batch, the loss and every gradient through the
    CUDA kernels against the plain backend;
 5. serves 8 requests on GPT-2 125M at full width (bf16, seeded random
-   weights) through ``LLMEngine`` and checks every stream, the pool and
-   that both kernels' launch counts equal 12 layers x the engine's calls
-   (12 B4 launches per decode step);
+   weights) through ``LLMEngine``, whose decode loop runs at lag 1 from
+   one captured CUDA graph per decode signature, and checks every stream
+   (the same in a second pass), the pool, and that every decode step of
+   the second pass replayed a graph (the wrappers launching B5 eagerly,
+   B4 never); then in a third pass, traced by ``torch.profiler`` with
+   the counts reset just before it, that both kernels launched on the
+   device 12 layers x the engine's calls (12 B4 launches from the graph
+   per decode step), read from the trace by kernel symbol; prints the
+   graphs captured and the capture seconds, tokens/s, the mean
+   decode step, the device idle share of a profiled pass, and for a
+   window of decode steps alone the host launch API calls per step beside
+   the device kernels per step (``benchmarks/engine_profile.py``); then
+   holds a graph replay against the eager step on the same inputs (same
+   ids, greedy and sampled; the logits within LOGIT_TOL);
 6. on the same weights runs one prefill plus decode steps with the CUDA
    kernels and with the plain backend and compares the logits;
 7. repeats 5 and 6 with ``quantization="int8"`` and ``"fp8"``: quantized
    weights and pool, the quantized kernels launching 12 layers x calls and
    the unquantized ones never, and the weights' and pool's device bytes
    about half of the bf16 engine's;
-8. prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+8. prints the kernels' JSON line (a paged kernel's ``launches``: on the
+   device in its engine's counted pass, from the trace;
+   ``eager_launches``: its wrapper's count in that pass), then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
 after one comparison per kernel (a first check of a new kernel);
 ``--profile`` adds B4's device time by split count and L2 state beside
 SDPA's, a profiled train step and profiled warm passes of the bf16 and
-the int8 engine's requests (device time by kernel, device idle share,
-step times, B4's device time per call).
+the int8 engine's requests (device time by kernel, step times, B4's
+device time per call, host ops by CPU time).
 """
 from __future__ import annotations
 
@@ -363,7 +379,52 @@ def kernels_phase(torch, quick: bool, kind=None) -> dict:
         compare(f"{kname} G=2", pa.paged_prefill_attention_cuda(*args),
                 paged_prefill_attention(*args), name)
         del x, args
+        unaligned_heads_phase(torch, dtype, kind)
     return rows
+
+
+def unaligned_heads_phase(torch, dtype, kind) -> None:
+    """Agreement only: B4 and B5 (their ``kind`` variants) at head dims
+    100 and 72, q in ``dtype``, the pool zero-padded to ``pool_head_dim``
+    as the engine's cache allocates it, against the plain versions."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import (
+        pad_head,
+        paged_attention,
+        paged_prefill_attention,
+        pool_head_dim,
+    )
+
+    name = str(dtype).split(".")[1]
+    suffix = f"_{kind}" if kind else ""
+    for hd in (100, 72):
+        width = pool_head_dim(hd, kind is not None)
+
+        def pool(x):
+            k, v = (pad_head(t.float(), width) for t in (x["k"], x["v"]))
+            if kind:
+                return quantize_pool(k, v, kind)
+            return k.to(dtype), v.to(dtype)
+
+        gen = torch.Generator(device="cuda").manual_seed(hd)
+        x = decode_case(torch, dtype)
+        x["k"], x["v"] = make_pool(torch, gen, torch.float32, 1024, 16,
+                                   DECODE["H"], hd)
+        q = torch.randn(DECODE["B"], DECODE["H"], hd, generator=gen,
+                        device="cuda").to(dtype)
+        args = (q, *pool(x), x["tables"], x["pos"])
+        compare(f"paged_decode{suffix} hd={hd} (pool {width})",
+                pa.paged_attention_cuda(*args), paged_attention(*args), name)
+        x = prefill_case(torch, dtype, [37, 100, 256, 500])
+        x["k"], x["v"] = make_pool(torch, gen, torch.float32, 1024, 16,
+                                   DECODE["H"], hd)
+        q = torch.randn(*x["q"].shape[:3], hd, generator=gen,
+                        device="cuda").to(dtype)
+        args = (q, *pool(x), x["tables"], x["pos"])
+        compare(f"paged_prefill{suffix} hd={hd} (pool {width})",
+                pa.paged_prefill_attention_cuda(*args),
+                paged_prefill_attention(*args), name)
+        del x, args
 
 
 # ------------------------------------------------------- flash attention
@@ -466,7 +527,34 @@ def flash_phase(torch, quick: bool) -> dict:
                 row["bound_ms"], row["bound_by"], ops = bounds[kname]
                 row["tflops"] = tflops(ops, row["ms"])
                 log(f"{kname} {name} {label}: {json.dumps(row)}")
+        wide_heads_phase(torch, dtype)
     return rows
+
+
+def wide_heads_phase(torch, dtype) -> None:
+    """Agreement only: B1-B3 at head dims 160 (zero-padded to 256 by the
+    wrappers, at the true scale) and 256 (the CUDA-core tiles of 32
+    rows), causal and full, against the plain versions at the true D."""
+    from ray_tpu_torch.ops import attention as at
+
+    name = str(dtype).split(".")[1]
+    for D in (160, 256):
+        gen = torch.Generator(device="cuda").manual_seed(D)
+        q, k, v, do = (torch.randn(2, 4, 512, D, generator=gen,
+                                   device="cuda").to(dtype) for _ in range(4))
+        for causal in (True, False):
+            kw = dict(causal=causal, scale=D ** -0.5)
+            label = f"D={D} {'causal' if causal else 'full'}"
+            o, lse = at.flash_forward_cuda(q, k, v, **kw)
+            o_ref, lse_ref = at.flash_forward_reference(q, k, v, **kw)
+            grads = at.flash_backward_cuda(q, k, v, o_ref, lse_ref, do, **kw)
+            refs = at.flash_backward_reference(q, k, v, o_ref, lse_ref, do,
+                                               **kw)
+            torch.cuda.synchronize()
+            compare(f"flash_fwd o {label}", o, o_ref, name)
+            compare(f"flash_fwd lse {label}", lse, lse_ref, name)
+            for what, got, want in zip(("dq", "dk", "dv"), grads, refs):
+                compare(f"flash_bwd {what} {label}", got, want, name)
 
 
 def flash_bwd_registers() -> None:
@@ -481,7 +569,7 @@ def flash_bwd_registers() -> None:
     parts = []
     for kname, dkv in (("flash_bwd_dkv", 1), ("flash_bwd_dq", 0)):
         for dtype_name, code in (("bfloat16", 1), ("float32", 0)):
-            for D in (32, 64, 128):
+            for D in (32, 64, 128, 256):
                 _build.raise_on("flash_bwd", kname, fn(dkv, D, code, out))
                 parts.append(f"{kname} {dtype_name} D={D} {out[0]}/{out[1]}")
     log("flash backward registers / local bytes per thread: "
@@ -575,22 +663,12 @@ def train_backends_phase(torch) -> dict:
     return {"loss_diff": dloss, "grad_rel": rel[worst]}
 
 
-def device_rows(prof):
-    """Device-side entries (kernels, copies, memsets) of a profile, by
-    total time: the host ops that launched them report the same time."""
-    from torch.autograd import DeviceType
-
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    return sorted(rows, reverse=True)
-
-
 def profile_train(torch) -> None:
     """Two warm GPT-2 train steps under torch.profiler: device time by
     kernel and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
+    from ray_tpu_torch.benchmarks.engine_profile import device_rows
     from ray_tpu_torch.benchmarks.gpt_mfu import (
         bench_batch,
         make_optimizer,
@@ -690,24 +768,6 @@ def decode_sweep(torch) -> None:
 
 # ---------------------------------------------------------------- engine
 
-def serve(torch, engine, prompts, params) -> dict:
-    """Submit every request, step the engine until idle; per-step host
-    times by kind (each step ends in its token sync, so the device work
-    of the step is done when it returns)."""
-    steps = {"prefill": [], "decode": []}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    streams = [engine.submit(p, s) for p, s in zip(prompts, params)]
-    while True:
-        ts = time.perf_counter()
-        if not engine.step():
-            break
-        steps[engine.last_step_kind].append(time.perf_counter() - ts)
-    torch.cuda.synchronize()
-    return {"outs": [list(s) for s in streams],
-            "seconds": time.perf_counter() - t0, "steps": steps}
-
-
 def weight_bytes(model) -> int:
     """Device bytes of a model's weights (quantized: data and scales)."""
     from ray_tpu_torch.ops.quantization import QuantizedTensor
@@ -719,76 +779,180 @@ def weight_bytes(model) -> int:
 
 def engine_phase(torch, quant=None) -> dict:
     """The engine workload (``quant``: None for bf16, or a quantization
-    kind); each path's kernels must launch 12 layers x its calls, every
-    other paged kernel never."""
-    import numpy as np
-
-    from ray_tpu_torch.models.gpt import GPTConfig
+    kind) on the lag-1 pipeline and its decode graphs. A first pass
+    captures the graphs; a second, timed, must repeat its streams and
+    replay a graph at every decode step, its wrappers launching B5 (and
+    no B4) eagerly; a third, the counted pass, runs under the profiler
+    with the launch counts reset just before it: its trace must show the
+    path's kernels launched 12 layers x its calls on the device (B4 from
+    the graph replays), every other paged kernel never."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
     from ray_tpu_torch.ops import paged_attention as pa
-    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine, SamplingParams
 
-    cfg = GPTConfig.gpt2_small()
-    engine = LLMEngine(
-        EngineConfig(model_config=cfg, block_size=16, num_blocks=1024,
-                     max_batch_size=8, prefill_chunk_tokens=256, seed=0,
-                     quantization=quant),
-        auto_step=False,
-    )
+    engine = ep.make_engine(quant)
+    cfg = engine.model_cfg
     assert engine.device.type == "cuda", engine.device
     assert engine.executor.quantization == quant
     tag = f"engine[{quant or 'bf16'}]"
     suffix = f"_{quant}" if quant else ""
-    rng = np.random.default_rng(0)
-    lengths = [30, 64, 120, 200, 333, 512, 700, 900]
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
-    params = [SamplingParams(max_new_tokens=32) for _ in prompts]
-    params[3] = SamplingParams(max_new_tokens=32, temperature=0.8, top_p=0.9,
-                               seed=7)
-    # warm-up pass over the same requests (cuBLAS handles, lazily loaded
-    # modules, allocator); its launches are not counted
-    warm = serve(torch, engine, prompts, params)
-    pf0, dec0 = engine.num_prefill_calls, engine.num_decode_steps
+    decode, prefill = "paged_decode" + suffix, "paged_prefill" + suffix
+    prompts, params = ep.workload(cfg.vocab_size)
+    fns = engine.fns
+    # first pass over the requests: the decode graphs are captured at
+    # first use (with cuBLAS handles, lazily loaded modules, allocator)
+    warm = ep.serve(torch, engine, prompts, params)
+    graphs, capture_s = fns.graphs_captured, fns.capture_seconds
+    log(f"{tag}: {graphs} decode graphs captured in {capture_s:.3f} s "
+        f"(first pass {warm['seconds']:.3f} s, {len(warm['steps']['decode'])}"
+        f" decode steps); signatures {sorted(fns.signatures)}")
+
+    def calls(run):
+        """The pass's (prefill calls, decode dispatches, graph replays)."""
+        was = (engine.num_prefill_calls, engine.num_decode_steps, fns.replays)
+        out = run()
+        return out, (engine.num_prefill_calls - was[0],
+                     engine.num_decode_steps - was[1], fns.replays - was[2])
+
     pa.reset_launches()
-    run = serve(torch, engine, prompts, params)
-    launches = dict(pa.LAUNCHES)
-    prefill_calls = engine.num_prefill_calls - pf0
-    decode_steps = engine.num_decode_steps - dec0
+    run, (prefill_calls, decode_steps, replays) = calls(
+        lambda: ep.serve(torch, engine, prompts, params))
+    eager = dict(pa.LAUNCHES)
     outs = run["outs"]
     for o in outs:
-        if len(o) != 32 or not all(0 <= t < cfg.vocab_size for t in o):
+        if len(o) != ep.NEW_TOKENS or not all(0 <= t < cfg.vocab_size
+                                              for t in o):
             raise AssertionError(f"bad stream {o}")
     if outs != warm["outs"]:
         raise AssertionError("a second pass over the same requests differs")
-    c = engine.cache
-    if c.free_blocks != c.cfg.usable_blocks or c.reserved_blocks != 0:
+    if fns.graphs_captured != graphs or replays != decode_steps:
         raise AssertionError(
-            f"pool not whole: {c.free_blocks} free of {c.cfg.usable_blocks}, "
-            f"{c.reserved_blocks} reserved")
-    want = dict.fromkeys(launches, 0)
-    want["paged_decode" + suffix] = cfg.n_layer * decode_steps
-    want["paged_prefill" + suffix] = cfg.n_layer * prefill_calls
+            f"second pass: {replays} graph replays for {decode_steps} decode "
+            f"steps, {fns.graphs_captured - graphs} new captures")
+    want_eager = dict.fromkeys(eager, 0)
+    want_eager[prefill] = cfg.n_layer * prefill_calls
+    if eager != want_eager or min(prefill_calls, decode_steps) == 0:
+        raise AssertionError(f"eager launches {eager} != {want_eager}")
+    lags = [r["sync_lag"] for r in engine.debug_dump()["steps"]
+            if r["kind"] == "decode"]
+    if 1 not in lags or engine.stats()["decode_inflight"] != 0:
+        raise AssertionError(f"the decode loop never ran at lag 1: {lags}")
+    c = engine.cache
+    snap = c.debug_snapshot()
+    if (c.free_blocks != c.cfg.usable_blocks or c.reserved_blocks != 0
+            or snap["freed_total"] != snap["allocated_total"]):
+        raise AssertionError(f"pool not whole: {snap}")
     ntok = sum(map(len, outs))
     steps = run["steps"]
     nbytes = {"weights": weight_bytes(engine.executor.model),
               "pool": c.nbytes()}
     log(f"{tag}: {len(outs)} requests, {ntok} tokens in "
-        f"{run['seconds']:.3f} s = {ntok / run['seconds']:.1f} tokens/s "
-        f"(first pass {warm['seconds']:.3f} s); {prefill_calls} prefill "
-        f"calls, mean {1e3 * statistics.mean(steps['prefill']):.2f} ms; "
-        f"{decode_steps} decode steps, mean "
-        f"{1e3 * statistics.mean(steps['decode']):.2f} ms; device bytes "
-        f"{nbytes}; launches {launches} (expected {want})")
-    if launches != want or min(prefill_calls, decode_steps) == 0:
+        f"{run['seconds']:.3f} s = {ntok / run['seconds']:.1f} tokens/s; "
+        f"{prefill_calls} prefill calls, mean "
+        f"{1e3 * statistics.mean(steps['prefill']):.2f} ms; {decode_steps} "
+        f"decode steps, mean {1e3 * statistics.mean(steps['decode']):.2f} "
+        f"ms, {replays} from graphs; device bytes {nbytes}; eager wrapper "
+        f"launches {eager} (expected {want_eager})")
+    log(f"{tag} first tokens: {[o[:4] for o in outs]}")
+
+    # the counted pass: the launches on the device, from its trace
+    pa.reset_launches()
+    prof, (prefill_calls, decode_steps, replays) = calls(
+        lambda: ep.profiled_pass(torch, engine, prompts, params))
+    eager = dict(pa.LAUNCHES)
+    launches = dict.fromkeys(pa.LAUNCHES, 0)
+    launches.update(prof["paged_launches"])
+    want = dict.fromkeys(launches, 0)
+    want[decode] = cfg.n_layer * decode_steps
+    want[prefill] = cfg.n_layer * prefill_calls
+    log(f"{tag}: counted pass: {prefill_calls} prefill calls, "
+        f"{decode_steps} decode steps ({replays} from graphs); launches on "
+        f"the device (trace) {launches} (expected {want}); eager wrapper "
+        f"launches {eager}")
+    if (launches != want or replays != decode_steps
+            or min(prefill_calls, decode_steps) == 0):
         raise AssertionError(f"launch counts {launches} != {want}")
-    per_step = launches["paged_decode" + suffix] / decode_steps
-    log(f"{tag}: {per_step:g} paged_decode{suffix} launches per decode step "
+    per_step = launches[decode] / decode_steps
+    log(f"{tag}: {per_step:g} {decode} launches per decode step "
         f"(expected {cfg.n_layer}, one per layer)")
     if per_step != cfg.n_layer:
         raise AssertionError(f"{per_step} B4 launches per decode step")
-    log(f"{tag} first tokens: {[o[:4] for o in outs]}")
-    return {"engine": engine, "launches": launches, "prompts": prompts,
-            "params": params, "bytes": nbytes,
+    window = ep.decode_window(torch, engine, prompts)
+    log(f"{tag}: profiled pass wall {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}; decode window of {window['steps']} "
+        f"steps: {window['step_ms']:.3f} ms a step, "
+        f"{window['launch_api_calls_per_step']:g} host launch API calls "
+        f"per step ({', '.join(f'{k} {v:g}' for k, v in window['runtime_calls_per_step'].items())}), "
+        f"{window['device_ops_per_step']:g} device kernels and copies per "
+        f"step, {window['device_busy_ms_per_step']:.3f} ms device busy a step")
+    graph_phase(torch, engine)
+    return {"engine": engine, "launches": launches, "eager": eager,
+            "prompts": prompts, "params": params, "bytes": nbytes,
             "tokens_per_s": ntok / run["seconds"]}
+
+
+def graph_phase(torch, engine) -> None:
+    """A decode step replayed from its captured graph against the eager
+    step on the same staged inputs, greedy and sampled, at the engine's
+    full width: 8 sequences of 100-900 tokens prefilled into free blocks
+    of the (idle) pool. Same ids; the logits of the step (eager, and from
+    a graph of the logits step) within LOGIT_TOL."""
+    import numpy as np
+
+    ex = engine.executor
+    cfg, cache = engine.model_cfg, engine.cache
+    if cache.used_blocks:
+        raise AssertionError("graph_phase needs an idle pool")
+    rng = np.random.default_rng(6)
+    B, nb = 8, 64
+    lengths = np.array([100, 250, 400, 512, 640, 700, 800, 900], np.int32)
+    tables = np.arange(1, 1 + B * nb, dtype=np.int32).reshape(B, nb)
+    tokens = rng.integers(0, cfg.vocab_size, (B, 1024)).astype(np.int32)
+    first = ex.sync_tokens(ex.prefill(tokens, lengths, tables))
+    tag = f"graph vs eager [{cfg.quantization or 'bf16'}]"
+    for sampled in (False, True):
+        sample = {"seeds": np.arange(B, dtype=np.int64),
+                  "temperature": np.full(B, 0.9 if sampled else 0.0,
+                                         np.float32),
+                  "top_k": np.zeros(B, np.int32),
+                  "top_p": np.full(B, 0.95, np.float32)}
+        g = ex.stage_decode(first, lengths, tables, sample)
+        assert g.sampled == sampled
+        eager = ex.fns.step(g.inputs, sampled).clone()
+        graphed = g.run().clone()
+        torch.cuda.synchronize()
+        if not torch.equal(graphed, eager):
+            raise AssertionError(f"{tag}: ids differ {graphed} {eager}")
+        # the host's cost of one replay (cudaGraphLaunch of every node),
+        # the device idle before each
+        launch_us = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.graph.replay()
+            launch_us.append(1e6 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        log(f"{tag}: sampled={sampled}: same ids {graphed.tolist()}; one "
+            f"replay costs the host {statistics.median(launch_us):.1f} us "
+            f"(median of 10)")
+    model = ex.model
+    args = (g.inputs["tokens"], g.inputs["positions"], g.inputs["tables"])
+    want, _, _ = model.decode_step(cache.k, cache.v, *args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.decode_step(cache.k, cache.v, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=ex.fns.pool):
+        out, _, _ = model.decode_step(cache.k, cache.v, *args)
+    graph.replay()
+    torch.cuda.synchronize()
+    diff = (out - want).abs().max().item()
+    log(f"{tag}: logits max_abs_diff {diff:.3e} (tol {LOGIT_TOL})")
+    if not diff <= LOGIT_TOL:
+        raise AssertionError(f"{tag}: logits differ by {diff}")
+    del graph, out, want
 
 
 def profile_phase(torch, eng) -> None:
@@ -798,6 +962,8 @@ def profile_phase(torch, eng) -> None:
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.benchmarks.engine_profile import device_rows, serve
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -932,9 +1098,11 @@ def main() -> int:
     train = train_phase(torch)
     loss_phase(torch, Timer(torch))
     train_backends_phase(torch)
-    # the paged kernels' launches, each from the engine whose path runs it
+    # the paged kernels' launches on the device and by their wrappers,
+    # each from the counted pass of the engine whose path runs it
     eng = engine_phase(torch)
     launches = {n: eng["launches"][n] for n in ("paged_decode", "paged_prefill")}
+    eager = {n: eng["eager"][n] for n in launches}
     base_bytes = eng["bytes"]
     backends_phase(torch, eng["engine"])
     if args.profile:
@@ -947,6 +1115,7 @@ def main() -> int:
         eng = engine_phase(torch, kind)
         for base in ("paged_decode", "paged_prefill"):
             launches[f"{base}_{kind}"] = eng["launches"][f"{base}_{kind}"]
+            eager[f"{base}_{kind}"] = eng["eager"][f"{base}_{kind}"]
         ratio = {n: eng["bytes"][n] / base_bytes[n] for n in base_bytes}
         log(f"engine[{kind}] device bytes / bf16 engine's: "
             f"{ {n: round(r, 4) for n, r in ratio.items()} } "
@@ -969,7 +1138,7 @@ def main() -> int:
             "source": f"ray_tpu_torch/csrc/{base}.cu",
             "replaces": "ray_tpu/ops/paged_attention.py:"
                         + ("104" if base == "paged_decode" else "322"),
-            "launches": launches[name],
+            "launches": launches[name], "eager_launches": eager[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -58,7 +58,12 @@
 // runs two passes.
 //
 // f32 inputs keep the CUDA-core tiles (flash_common.cuh): their
-// tensor-core form would be TF32, which rounds the inputs.
+// tensor-core form would be TF32, which rounds the inputs. Head dim 256
+// (wider heads up to 256, zero-padded by the wrapper) runs those tiles for
+// bf16 inputs too, 32 rows a tile (four [32][257] f32 tiles and the p and
+// ds tiles fit in shared memory; 64 rows would not), with the TPU's bf16
+// rounding of s - lse, exp2 and ds: at D 256 the tensor-core kernels'
+// accumulators would not fit in a thread's 255 registers.
 #include "flash_common.cuh"
 
 #include <type_traits>
@@ -67,9 +72,10 @@ namespace {
 
 using namespace flash;
 
-// ---- f32: the CUDA-core tiles of flash_common.cuh
+// ---- f32 (and bf16 at head dim 256): the CUDA-core tiles of
+// flash_common.cuh
 
-// p and ds of one [64 q][64 kv] tile pair into Ps / dSs (either may be
+// p and ds of one [BM q][BM kv] tile pair into Ps / dSs (either may be
 // null), from the staged Qs, Ks, dOs, Vs and the rows' lse (Ls) and delta
 // (Ds).
 template <typename T, int D>
@@ -78,40 +84,44 @@ __device__ __forceinline__ void probs_and_ds(
     const float* Ls, const float* Ds, float* Ps, float* dSs, int q0, int k0,
     int S, int causal) {
   constexpr int LD = D + 1;
+  constexpr int BM = tile_rows<D>();
+  constexpr int LDP = BM + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[8][kTile / 16], dp[8][kTile / 16];
-  zero<kTile>(s);
-  zero<kTile>(dp);
-  tile_mma<kTile, D, false, false>(s, Qs, LD, Ks, LD);
-  tile_mma<kTile, D, false, false>(dp, dOs, LD, Vs, LD);
+  float s[BM / 8][BM / 16], dp[BM / 8][BM / 16];
+  zero<BM, BM>(s);
+  zero<BM, BM>(dp);
+  tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
+  tile_mma<BM, BM, D, false, false>(dp, dOs, LD, Vs, LD);
   const bool masked =
-      (causal && q0 == k0) || q0 + kTile > S || k0 + kTile > S;
+      (causal && q0 == k0) || q0 + BM > S || k0 + BM > S;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < BM / 8; ++i) {
     const int r = ty + 8 * i;
     const float lse = Ls[r], delta = Ds[r];
 #pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
+    for (int j = 0; j < BM / 16; ++j) {
       const int c = tx + 16 * j;
       float p = 0.f;
       if (!masked || visible(q0 + r, k0 + c, S, causal))
         p = round_t<T>(exp2f(round_t<T>(s[i][j] - lse)));
-      if (Ps != nullptr) Ps[r * kLdP + c] = p;
-      dSs[r * kLdP + c] = round_t<T>(p * (dp[i][j] - delta) * kLn2);
+      if (Ps != nullptr) Ps[r * LDP + c] = p;
+      dSs[r * LDP + c] = round_t<T>(p * (dp[i][j] - delta) * kLn2);
     }
   }
 }
 
 template <int D>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * ((size_t)4 * kTile * (D + 1) +
-                          (size_t)2 * kTile * kLdP + 2 * kTile);
+  constexpr int BM = tile_rows<D>();
+  return sizeof(float) * ((size_t)4 * BM * (D + 1) +
+                          (size_t)2 * BM * (BM + 1) + 2 * BM);
 }
 
 template <int D>
 constexpr size_t dq_smem() {
-  return sizeof(float) * ((size_t)4 * kTile * (D + 1) +
-                          (size_t)kTile * kLdP + 2 * kTile);
+  constexpr int BM = tile_rows<D>();
+  return sizeof(float) * ((size_t)4 * BM * (D + 1) +
+                          (size_t)BM * (BM + 1) + 2 * BM);
 }
 
 template <typename T, int D>
@@ -124,46 +134,48 @@ __global__ void __launch_bounds__(kThreads)
                          int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LD = D + 1;
+  constexpr int BM = tile_rows<D>();
+  constexpr int LDP = BM + 1;
   float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;
-  float* dSs = Ps + kTile * kLdP;
-  float* Ls = dSs + kTile * kLdP;
-  float* Ds = Ls + kTile;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  float* Vs = Ks + BM * LD;
+  float* Qs = Vs + BM * LD;
+  float* dOs = Qs + BM * LD;
+  float* Ps = dOs + BM * LD;
+  float* dSs = Ps + BM * LDP;
+  float* Ls = dSs + BM * LDP;
+  float* Ds = Ls + BM;
+  const int n_tiles = (S + BM - 1) / BM;
   const int kt = blockIdx.x;  // causal: tile 0 sees the most q tiles
-  const int k0 = kt * kTile;
+  const int k0 = kt * BM;
   const size_t base = (size_t)blockIdx.y * S * D;
   const float* lse_b = lse + (size_t)blockIdx.y * S;
   const float* delta_b = delta + (size_t)blockIdx.y * S;
   const float c = round_t<T>(qscale);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, D, false>(Ks, k + base, k0, S, 0.f);
-  load_tile<T, D, false>(Vs, v + base, k0, S, 0.f);
-  float acc_dk[8][D / 16], acc_dv[8][D / 16];
-  zero<D>(acc_dk);
-  zero<D>(acc_dv);
+  load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
+  load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
+  float acc_dk[BM / 8][D / 16], acc_dv[BM / 8][D / 16];
+  zero<BM, D>(acc_dk);
+  zero<BM, D>(acc_dv);
 
   for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kTile;
-    load_tile<T, D, true>(Qs, q + base, q0, S, c);
-    load_tile<T, D, false>(dOs, dout + base, q0, S, 0.f);
-    load_rows(Ls, lse_b, q0, S);
-    load_rows(Ds, delta_b, q0, S);
+    const int q0 = qt * BM;
+    load_tile<T, D, true, BM>(Qs, q + base, q0, S, c);
+    load_tile<T, D, false, BM>(dOs, dout + base, q0, S, 0.f);
+    load_rows<BM>(Ls, lse_b, q0, S);
+    load_rows<BM>(Ds, delta_b, q0, S);
     __syncthreads();
     probs_and_ds<T, D>(Qs, Ks, dOs, Vs, Ls, Ds, Ps, dSs, q0, k0, S, causal);
     __syncthreads();
     // rows kv, columns d, summed over the tile's q rows
-    tile_mma<D, kTile, true, true>(acc_dv, Ps, kLdP, dOs, LD);
-    tile_mma<D, kTile, true, true>(acc_dk, dSs, kLdP, Qs, LD);
+    tile_mma<BM, D, BM, true, true>(acc_dv, Ps, LDP, dOs, LD);
+    tile_mma<BM, D, BM, true, true>(acc_dk, dSs, LDP, Qs, LD);
     __syncthreads();  // the next q tile overwrites Qs, dOs, Ps and dSs
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < BM / 8; ++i) {
     const int kpos = k0 + ty + 8 * i;
     if (kpos >= S) continue;
 #pragma unroll
@@ -184,43 +196,45 @@ __global__ void __launch_bounds__(kThreads)
                         int S, float qscale, int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LD = D + 1;
+  constexpr int BM = tile_rows<D>();
+  constexpr int LDP = BM + 1;
   float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;
-  float* Ls = dSs + kTile * kLdP;
-  float* Ds = Ls + kTile;
-  const int n_tiles = (S + kTile - 1) / kTile;
+  float* dOs = Qs + BM * LD;
+  float* Ks = dOs + BM * LD;
+  float* Vs = Ks + BM * LD;
+  float* dSs = Vs + BM * LD;
+  float* Ls = dSs + BM * LDP;
+  float* Ds = Ls + BM;
+  const int n_tiles = (S + BM - 1) / BM;
   const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
-  const int q0 = qt * kTile;
+  const int q0 = qt * BM;
   const size_t base = (size_t)blockIdx.y * S * D;
   const float c = round_t<T>(qscale);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, D, true>(Qs, q + base, q0, S, c);
-  load_tile<T, D, false>(dOs, dout + base, q0, S, 0.f);
-  load_rows(Ls, lse + (size_t)blockIdx.y * S, q0, S);
-  load_rows(Ds, delta + (size_t)blockIdx.y * S, q0, S);
-  float acc[8][D / 16];
-  zero<D>(acc);
+  load_tile<T, D, true, BM>(Qs, q + base, q0, S, c);
+  load_tile<T, D, false, BM>(dOs, dout + base, q0, S, 0.f);
+  load_rows<BM>(Ls, lse + (size_t)blockIdx.y * S, q0, S);
+  load_rows<BM>(Ds, delta + (size_t)blockIdx.y * S, q0, S);
+  float acc[BM / 8][D / 16];
+  zero<BM, D>(acc);
 
   const int kt_end = causal ? qt : n_tiles - 1;
   for (int kt = 0; kt <= kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<T, D, false>(Ks, k + base, k0, S, 0.f);
-    load_tile<T, D, false>(Vs, v + base, k0, S, 0.f);
+    const int k0 = kt * BM;
+    load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
+    load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
     __syncthreads();
     probs_and_ds<T, D>(Qs, Ks, dOs, Vs, Ls, Ds, nullptr, dSs, q0, k0, S,
                        causal);
     __syncthreads();
     // rows q, columns d, summed over the tile's keys
-    tile_mma<D, kTile, false, true>(acc, dSs, kLdP, Ks, LD);
+    tile_mma<BM, D, BM, false, true>(acc, dSs, LDP, Ks, LD);
     __syncthreads();  // the next kv tile overwrites Ks, Vs and dSs
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < BM / 8; ++i) {
     const int qpos = q0 + ty + 8 * i;
     if (qpos >= S) continue;
 #pragma unroll
@@ -519,9 +533,13 @@ struct Args {
   cudaStream_t stream;
 };
 
+// bf16 up to head dim 128 takes the tensor cores
+template <typename T, int D>
+constexpr bool kOnMma = std::is_same_v<T, __nv_bfloat16> && D <= 128;
+
 template <bool DKV, typename T, int D>
 auto kernel_of() {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (kOnMma<T, D>) {
     if constexpr (DKV)
       return &flash_bwd_dkv_mma_kernel<D>;
     else
@@ -535,13 +553,14 @@ auto kernel_of() {
 
 template <bool DKV, typename T, int D>
 int launch(const Args& a) {
-  constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
+  constexpr bool kMma = kOnMma<T, D>;
   const auto kernel = kernel_of<DKV, T, D>();
   const size_t bytes =
       kMma ? mma_smem<D>(DKV) : (DKV ? dkv_smem<D>() : dq_smem<D>());
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (a.S + kTile - 1) / kTile;
+  constexpr int rows = kMma ? kTile : tile_rows<D>();
+  const int n_tiles = (a.S + rows - 1) / rows;
   // tensor-core grid: tile order on y, so the longest walks of every
   // (b, h) start first
   const dim3 grid = kMma ? dim3(a.BH, n_tiles) : dim3(n_tiles, a.BH);
@@ -565,7 +584,7 @@ struct Inst {
 };
 
 // fn(Inst<T, D>{}) for dtype (0 = float32, 1 = bfloat16) and head dim D
-// in {32, 64, 128}; any other pair is cudaErrorInvalidValue.
+// in {32, 64, 128, 256}; any other pair is cudaErrorInvalidValue.
 template <typename Fn>
 int dispatch(int D, int dtype, Fn fn) {
 #define FLASH_BWD_CASE(T, DIM) \
@@ -574,10 +593,12 @@ int dispatch(int D, int dtype, Fn fn) {
     FLASH_BWD_CASE(float, 32)
     FLASH_BWD_CASE(float, 64)
     FLASH_BWD_CASE(float, 128)
+    FLASH_BWD_CASE(float, 256)
   } else if (dtype == 1) {
     FLASH_BWD_CASE(__nv_bfloat16, 32)
     FLASH_BWD_CASE(__nv_bfloat16, 64)
     FLASH_BWD_CASE(__nv_bfloat16, 128)
+    FLASH_BWD_CASE(__nv_bfloat16, 256)
   }
 #undef FLASH_BWD_CASE
   return (int)cudaErrorInvalidValue;

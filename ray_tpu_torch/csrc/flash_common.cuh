@@ -7,19 +7,23 @@
 // [B, H, S, D] tensors of the wrapper, contiguous); the base-2 log-sum-exp
 // and delta = rowsum(dO * O) are [B*H, S] f32.
 //
-// Every kernel works on 64-row tiles of queries and 64-key tiles of keys
-// with 128 threads. Tiles are staged in shared memory as f32 (bf16 inputs
-// are exact in f32), each row padded by one float so that both row-wise
-// and column-wise reads of a tile spread over all 32 banks. Products of
-// two tiles run on the CUDA cores: thread (ty, tx) = (tid / 16, tid % 16)
-// owns output rows ty + 8 i (i < 8) and columns tx + 16 j and keeps their
-// f32 sums in registers, so the 16 threads of one row form a half-warp and
-// row reductions are four shuffles.
+// Every kernel works on tiles of BM queries and BM keys with 128 threads:
+// BM = tile_rows<D>() is 64, or 32 at head dim 256, where four [64][257]
+// f32 tiles would not fit in a block's shared memory. Tiles are staged in
+// shared memory as f32 (bf16 inputs are exact in f32), each row padded by
+// one float so that both row-wise and column-wise reads of a tile spread
+// over all 32 banks. Products of two tiles run on the CUDA cores: thread
+// (ty, tx) = (tid / 16, tid % 16) owns output rows ty + 8 i (i < BM / 8)
+// and columns tx + 16 j and keeps their f32 sums in registers, so the 16
+// threads of one row form a half-warp and row reductions are four
+// shuffles.
 //
 // Numerics follow the TPU kernels: q is scaled by round_T(scale * log2 e)
 // and rounded to T; scores, max, sums and accumulators are f32; with bf16
 // inputs (s - m) and exp2 are rounded to bf16, and p and ds are rounded to
-// T before their products. f32 inputs stay f32 throughout.
+// T before their products. f32 inputs stay f32 throughout. The kernels run
+// f32 inputs at every head dim, and bf16 inputs at head dim 256, wider than
+// the tensor-core tiles take.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,7 +36,12 @@ namespace flash {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;           // query rows, and keys, per tile
-constexpr int kLdP = kTile + 1;     // row stride of a [64][64] score tile
+
+// Rows (and keys) of a CUDA-core tile at head dim D.
+template <int D>
+__host__ __device__ constexpr int tile_rows() {
+  return D <= 128 ? kTile : kTile / 2;
+}
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -64,14 +73,14 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Stage rows row0 .. row0 + 63 of a [S, D] slice into dst [64][D + 1] as
-// f32; rows past S are zero. SCALED multiplies by c and rounds to T (the
+// Stage rows row0 .. row0 + BM - 1 of a [S, D] slice into dst [BM][D + 1]
+// as f32; rows past S are zero. SCALED multiplies by c and rounds to T (the
 // pre-scaled q of the TPU kernels).
-template <typename T, int D, bool SCALED>
+template <typename T, int D, bool SCALED, int BM>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const T* __restrict__ src, int row0,
                                           int S, float c) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
+  for (int e = threadIdx.x; e < BM * D; e += kThreads) {
     const int r = e / D, d = e % D, row = row0 + r;
     float x = row < S ? to_f32(src[(size_t)row * D + d]) : 0.f;
     if (SCALED) x = round_t<T>(x * c);
@@ -79,28 +88,29 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst,
   }
 }
 
-// Stage 64 entries of a [S] f32 row vector; entries past S are zero.
+// Stage BM entries of a [S] f32 row vector; entries past S are zero.
+template <int BM>
 __device__ __forceinline__ void load_rows(float* __restrict__ dst,
                                           const float* __restrict__ src,
                                           int row0, int S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads)
+  for (int r = threadIdx.x; r < BM; r += kThreads)
     dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
 }
 
-// acc[i][j] += sum_k A(r, k) * B(c, k) for r = ty + 8 i, c = tx + 16 j,
-// k < K. A(r, k) is A[r * lda + k], or A[k * lda + r] when AT; B(c, k) is
-// B[c * ldb + k], or B[k * ldb + c] when BT.
-template <int N, int K, bool AT, bool BT>
-__device__ __forceinline__ void tile_mma(float (&acc)[8][N / 16],
+// acc[i][j] += sum_k A(r, k) * B(c, k) for r = ty + 8 i (i < M / 8),
+// c = tx + 16 j, k < K. A(r, k) is A[r * lda + k], or A[k * lda + r] when
+// AT; B(c, k) is B[c * ldb + k], or B[k * ldb + c] when BT.
+template <int M, int N, int K, bool AT, bool BT>
+__device__ __forceinline__ void tile_mma(float (&acc)[M / 8][N / 16],
                                          const float* __restrict__ A, int lda,
                                          const float* __restrict__ B,
                                          int ldb) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
-    float a[8], b[N / 16];
+    float a[M / 8], b[N / 16];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < M / 8; ++i) {
       const int r = ty + 8 * i;
       a[i] = AT ? A[k * lda + r] : A[r * lda + k];
     }
@@ -110,16 +120,16 @@ __device__ __forceinline__ void tile_mma(float (&acc)[8][N / 16],
       b[j] = BT ? B[k * ldb + c] : B[c * ldb + k];
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < M / 8; ++i)
 #pragma unroll
       for (int j = 0; j < N / 16; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[8][N / 16]) {
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&acc)[M / 8][N / 16]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < M / 8; ++i)
 #pragma unroll
     for (int j = 0; j < N / 16; ++j) acc[i][j] = 0.f;
 }

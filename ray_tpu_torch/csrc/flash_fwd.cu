@@ -32,7 +32,11 @@
 //
 // f32 inputs keep the first version's CUDA-core tiles (flash_common.cuh,
 // shared with flash_bwd.cu): their tensor-core form would be TF32, which
-// rounds the inputs.
+// rounds the inputs. Head dim 256 (any wider head up to 256, zero-padded
+// by the wrapper) runs those tiles for bf16 inputs too, 32 rows a tile,
+// with the same bf16 rounding of s - m and exp2: the tensor-core tiles
+// hold a warp's output accumulator for 16 rows in registers, which at 256
+// columns would not fit beside the Q fragments.
 #include "flash_common.cuh"
 
 #include <type_traits>
@@ -43,10 +47,12 @@ using namespace flash;
 
 template <int D>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * ((size_t)3 * kTile * (D + 1) + (size_t)kTile * kLdP);
+  constexpr int BM = tile_rows<D>();
+  return sizeof(float) * ((size_t)3 * BM * (D + 1) + (size_t)BM * (BM + 1));
 }
 
-// ---- f32: the CUDA-core tiles of flash_common.cuh
+// ---- f32 (and bf16 at head dim 256): the CUDA-core tiles of
+// flash_common.cuh
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -56,42 +62,45 @@ __global__ void __launch_bounds__(kThreads)
                      int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LD = D + 1;
-  float* Qs = smem;             // [64][LD] pre-scaled queries
-  float* Ks = Qs + kTile * LD;  // [64][LD]
-  float* Vs = Ks + kTile * LD;  // [64][LD]
-  float* Ps = Vs + kTile * LD;  // [64][kLdP] probabilities
-  const int n_tiles = (S + kTile - 1) / kTile;
+  constexpr int BM = tile_rows<D>();  // query rows, and keys, per tile
+  constexpr int RI = BM / 8;          // rows per thread
+  constexpr int LDP = BM + 1;
+  float* Qs = smem;             // [BM][LD] pre-scaled queries
+  float* Ks = Qs + BM * LD;     // [BM][LD]
+  float* Vs = Ks + BM * LD;     // [BM][LD]
+  float* Ps = Vs + BM * LD;     // [BM][LDP] probabilities
+  const int n_tiles = (S + BM - 1) / BM;
   const int qt = n_tiles - 1 - blockIdx.x;
-  const int q0 = qt * kTile;
+  const int q0 = qt * BM;
   const size_t base = (size_t)blockIdx.y * S * D;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, D, true>(Qs, q + base, q0, S, round_t<T>(qscale));
-  float m[8], l[8], acc[8][D / 16];
+  load_tile<T, D, true, BM>(Qs, q + base, q0, S, round_t<T>(qscale));
+  float m[RI], l[RI], acc[RI][D / 16];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
   }
-  zero<D>(acc);
+  zero<BM, D>(acc);
 
   const int kt_end = causal ? qt : n_tiles - 1;
   for (int kt = 0; kt <= kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    load_tile<T, D, false>(Ks, k + base, k0, S, 0.f);
-    load_tile<T, D, false>(Vs, v + base, k0, S, 0.f);
+    const int k0 = kt * BM;
+    load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
+    load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
     __syncthreads();
 
-    float s[8][kTile / 16];
-    zero<kTile>(s);
-    tile_mma<kTile, D, false, false>(s, Qs, LD, Ks, LD);
-    const bool masked = (causal && kt == qt) || k0 + kTile > S;
+    float s[RI][BM / 16];
+    zero<BM, BM>(s);
+    tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
+    const bool masked = (causal && kt == qt) || k0 + BM > S;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int r = ty + 8 * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kTile / 16; ++j) {
+      for (int j = 0; j < BM / 16; ++j) {
         // rows past S (never written) are masked like any other row, and
         // key 0 of tile 0 keeps every row's maximum finite
         const int kpos = k0 + tx + 16 * j;
@@ -102,9 +111,9 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(m[i], row_max(mx));
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kTile / 16; ++j) {
+      for (int j = 0; j < BM / 16; ++j) {
         const float p = round_t<T>(exp2f(round_t<T>(s[i][j] - m_new)));
-        Ps[r * kLdP + tx + 16 * j] = p;
+        Ps[r * LDP + tx + 16 * j] = p;
         sum += p;
       }
       const float alpha = exp2f(m[i] - m_new);
@@ -114,12 +123,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-    tile_mma<D, kTile, false, true>(acc, Ps, kLdP, Vs, LD);
+    tile_mma<BM, D, BM, false, true>(acc, Ps, LDP, Vs, LD);
     __syncthreads();  // the next tile overwrites Ks, Vs and Ps
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qpos = q0 + ty + 8 * i;
     if (qpos >= S) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
@@ -231,13 +240,14 @@ __global__ void __launch_bounds__(mma::kThreads)
   }
 }
 
-// ---- launches: bf16 on the tensor cores, f32 on the CUDA-core tiles
+// ---- launches: bf16 up to head dim 128 on the tensor cores, f32 (and bf16
+// at 256) on the CUDA-core tiles
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int BH, int S, float qscale, int causal, cudaStream_t stream) {
-  dim3 grid((S + kTile - 1) / kTile, BH);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && D <= 128) {
+    dim3 grid((S + kTile - 1) / kTile, BH);
     const size_t bytes = mma_smem<D>();
     cudaError_t err = allow_smem(flash_fwd_mma_kernel<D>, bytes);
     if (err != cudaSuccess) return (int)err;
@@ -246,6 +256,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
         static_cast<const T*>(v), static_cast<T*>(o), lse, S, qscale,
         causal);
   } else {
+    dim3 grid((S + tile_rows<D>() - 1) / tile_rows<D>(), BH);
     const size_t bytes = fwd_smem<D>();
     cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, bytes);
     if (err != cudaSuccess) return (int)err;
@@ -268,13 +279,15 @@ int by_dim(const void* q, const void* k, const void* v, void* o, float* lse,
       return launch<T, 64>(q, k, v, o, lse, BH, S, qscale, causal, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, BH, S, qscale, causal, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, lse, BH, S, qscale, causal, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128}; lse may be null
+// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128, 256}; lse may be null
 // (not written). Returns a cudaError_t (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int BH, int S, int D, float qscale,

@@ -409,8 +409,7 @@ class GPT(nn.Module):
         logits = self._logits(h_last)
         if sample is None:
             return logits, cache_k, cache_v
-        new_pos = lengths if start is None else start + lengths
-        return sample_tokens(logits, new_pos, sample), cache_k, cache_v
+        return sample_tokens(logits, sample), cache_k, cache_v
 
     @torch.no_grad()
     def decode_step(self, cache_k, cache_v, tokens, positions, block_tables,
@@ -441,7 +440,7 @@ class GPT(nn.Module):
         logits = self._logits(h)
         if sample is None:
             return logits, cache_k, cache_v
-        return sample_tokens(logits, positions + 1, sample), cache_k, cache_v
+        return sample_tokens(logits, sample), cache_k, cache_v
 
 
 def gpt_init(cfg: GPTConfig, seed: int = 0, device=None, *,

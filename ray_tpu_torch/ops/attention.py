@@ -13,12 +13,14 @@ kernels (counterpart of ``ray_tpu/ops/attention.py``).
   for B1, bf16 inputs run on the tensor cores, f32 inputs on the CUDA
   cores.
 
-The kernels are built for head dims 32, 64 and 128. A narrower head
-(any D up to 128) runs through ``head_padded``: q, k, v (and o, dO) are
-zero-padded along D to the next built width and the outputs and
-gradients sliced back. Zero columns add nothing to q·kᵀ and give zero
-output and gradient columns, and the softmax scale is passed in (1/√D of
-the true D), so the padding is exact. D > 128 raises.
+The kernels are built for head dims 32, 64, 128 and 256 (bf16 up to 128
+on the tensor cores; bf16 at 256, and f32 at every width, on the CUDA
+cores with the same bf16 rounding). Any other D up to 256 runs through
+``head_padded``: q, k, v (and o, dO) are zero-padded along D to the next
+built width and the outputs and gradients sliced back. Zero columns add
+nothing to q·kᵀ and give zero output and gradient columns, and the
+softmax scale is passed in (1/√D of the true D), so the padding is exact.
+D > 256 raises.
 
 Beside each is its plain version (``flash_forward_reference``,
 ``flash_bwd_dkv_reference``, ``flash_bwd_dq_reference``, and
@@ -52,7 +54,7 @@ LN2 = math.log(2.0)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)  # head dims the CUDA kernels are built for
+HEAD_DIMS = (32, 64, 128, 256)  # head dims the CUDA kernels are built for
 
 
 def reset_launches() -> None:

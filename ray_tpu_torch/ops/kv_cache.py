@@ -9,6 +9,13 @@ so every op below is mask-free and shape-static.
 Unlike the JAX arrays, the pool is updated IN PLACE by ``write_kv`` (a
 ``[n_layer, ...]`` pool at GPT-2 width is far too large to copy per step).
 
+The pool's head dim may be wider than the model's: the CUDA kernels copy
+pool rows in 16-byte pieces, so a pool is allocated at ``pool_head_dim``
+(the head dim rounded up to 8 elements, 16 for a 1-byte pool) and its
+extra columns stay zero. ``scatter_kv`` zero-pads each written row, and
+the attentions below read only q's head dim, at the scale of that true
+head dim. An aligned head dim (GPT-2's 64) keeps its layout and bytes.
+
 A quantized pool is a ``QuantizedKV`` pair per side (``ops/quantization.py``):
 ``scatter_kv`` quantizes each incoming (token, kv head) row and lands its
 data and scale at the same (block, slot); ``gather_kv`` dequantizes the
@@ -30,6 +37,20 @@ import torch
 
 from ray_tpu_torch.ops.attention import NEG_INF
 from ray_tpu_torch.ops.quantization import QuantizedKV, quant_kind, quantize_kv
+
+
+def pool_head_dim(head_dim: int, quantized: bool = False) -> int:
+    """Head dim a pool is allocated with: ``head_dim`` rounded up to a
+    16-byte row piece (8 elements of 2 bytes or more, 16 of 1 byte)."""
+    align = 16 if quantized else 8
+    return -(-head_dim // align) * align
+
+
+def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x zero-padded along its last axis to ``width``."""
+    if x.shape[-1] == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 def physical_slots(
@@ -84,10 +105,14 @@ def write_slots(
 
 
 def scatter_kv(k_layer, v_layer, k, v, slots):
-    """In-place scatter of k, v into one layer at ``write_slots`` indices.
-    A ``QuantizedKV`` layer takes each row quantized (one scale per
-    (token, kv head)), its data and scale at the same (block, slot)."""
+    """In-place scatter of k, v into one layer at ``write_slots`` indices,
+    each row zero-padded to the pool's head dim. A ``QuantizedKV`` layer
+    takes each row quantized (one scale per (token, kv head); the zero
+    columns leave its amax as it is), its data and scale at the same
+    (block, slot)."""
     blk, slot = slots
+    width = k_layer.shape[-1]
+    k, v = pad_head(k, width), pad_head(v, width)
     if isinstance(k_layer, QuantizedKV):
         kind = quant_kind(k_layer.dtype)
         for layer, x in ((k_layer, k), (v_layer, v)):
@@ -142,12 +167,14 @@ def paged_prefill_attention(
     q: [B, S, H_q, hd], a chunk of queries whose own K/V are already
     written; positions [B, S] their true positions. Query row attends
     ``t <= position`` (and ``t > position - window`` with a window).
-    Returns [B, S, H_q, hd] in q.dtype."""
+    The pool's head dim may be ``pool_head_dim(hd)``; its padding columns
+    are not read. Returns [B, S, H_q, hd] in q.dtype."""
     B, S, Hq, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     Hkv = k_layer.shape[2]
     qg = q.reshape(B, S, Hkv, Hq // Hkv, hd)
-    keys, values = gather_kv(k_layer, v_layer, block_tables)  # [B,T,Hkv,hd]
+    keys, values = gather_kv(k_layer, v_layer, block_tables)  # [B,T,Hkv,*]
+    keys, values = keys[..., :hd], values[..., :hd]
     T = keys.shape[1]
     logits = torch.einsum("bshgd,bthd->bshgt", qg.float(), keys.float()) * scale
     t = torch.arange(T, device=q.device)
@@ -174,11 +201,14 @@ def paged_attention(
     and of its quantized variant).
 
     q: [B, H_q, hd], the current token's query after its own K/V were
-    written (the mask ``t <= position`` includes self). Returns
-    [B, H_q, hd] in q.dtype; GQA by regrouping queries onto their KV head."""
+    written (the mask ``t <= position`` includes self). The pool's head
+    dim may be ``pool_head_dim(hd)``; its padding columns are not read.
+    Returns [B, H_q, hd] in q.dtype; GQA by regrouping queries onto their
+    KV head."""
     B, Hq, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    keys, values = gather_kv(k_layer, v_layer, block_tables)  # [B,T,Hkv,hd]
+    keys, values = gather_kv(k_layer, v_layer, block_tables)  # [B,T,Hkv,*]
+    keys, values = keys[..., :hd], values[..., :hd]
     Hkv = keys.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd)
     logits = torch.einsum("bhgd,bthd->bhgt", qg.float(), keys.float()) * scale

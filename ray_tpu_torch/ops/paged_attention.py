@@ -14,7 +14,10 @@
   129-256, run the CUDA-core walk.
 
 Both take the same arguments as their plain versions in
-``ops/kv_cache.py``. A pool of ``QuantizedKV`` layers (int8 or fp8-e4m3
+``ops/kv_cache.py``, any head dim up to 256: a pool is held at
+``pool_head_dim`` (16-byte rows), and where that is wider than q's head
+dim the wrapper zero-pads q to it, launches at the scale of the true head
+dim and slices the output back. A pool of ``QuantizedKV`` layers (int8 or fp8-e4m3
 data, f32 scales ``data.shape[:-1]``) launches the quantized variant of
 the same kernel, counted under ``<kernel>_int8`` / ``<kernel>_fp8``.
 A wrapper checks device, dtype, shape and contiguity
@@ -22,8 +25,12 @@ A wrapper checks device, dtype, shape and contiguity
 must lie in the pool),
 allocates the output with ``torch.empty``, launches on the current stream
 and raises if the launch returns a CUDA error; it never falls back to the
-plain version. Each counts its launches in ``LAUNCHES``; B4's wrapper
-also keeps the split count it last launched with in ``SPLITS``.
+plain version. Each counts its launches in ``LAUNCHES``: a call that
+launches its kernel now, not one recorded into a CUDA graph under
+capture (the graph's replays launch it without the wrapper, and a trace
+of the device counts those: ``benchmarks/engine_profile.paged_launches``).
+B4's wrapper also keeps the split count it last launched with in
+``SPLITS``.
 
 ``decode_attention`` / ``prefill_attention`` are what the model calls.
 Their ``backend`` knob is ``auto | torch | cuda``; ``auto`` picks the
@@ -39,11 +46,17 @@ import torch
 from ray_tpu_torch import _build
 from ray_tpu_torch._device import resolve_backend
 from ray_tpu_torch.ops.attention import LOG2E
-from ray_tpu_torch.ops.kv_cache import paged_attention, paged_prefill_attention
+from ray_tpu_torch.ops.kv_cache import (
+    pad_head,
+    paged_attention,
+    paged_prefill_attention,
+    pool_head_dim,
+)
 from ray_tpu_torch.ops.quantization import QuantizedKV
 
-# launches of each kernel by its wrapper — a run resets these to 0 and
-# reads them to show which kernels its path went through
+# launches of each kernel by its wrapper, outside graph captures — a run
+# resets these to 0 and reads them to show which kernels its path went
+# through
 LAUNCHES = {"paged_decode": 0, "paged_decode_int8": 0, "paged_decode_fp8": 0,
             "paged_prefill": 0, "paged_prefill_int8": 0,
             "paged_prefill_fp8": 0}
@@ -67,6 +80,13 @@ _KV_CODES = {torch.int8: (1, "_int8"), torch.float8_e4m3fn: (2, "_fp8")}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _launched(key: str) -> None:
+    """Count a launch under ``key``, unless the current stream is being
+    captured into a CUDA graph: then nothing launched."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[key] += 1
 
 
 def decode_splits(B: int, Hkv: int, NB: int, block_size: int,
@@ -140,12 +160,12 @@ def _check(name, q, k_layer, v_layer, block_tables, positions, q_dims):
         )
     hd, Hq = q.shape[-1], q.shape[-2]
     _, bs, Hkv, hd_pool = k_layer.shape
-    align = 16 if quant else 8  # elements in one 16-byte copy
-    if hd_pool != hd or Hq % Hkv or hd % align or hd > 256:
+    if hd > 256 or hd_pool != pool_head_dim(hd, quant) or Hq % Hkv:
         raise ValueError(
-            f"{name}: head_dim {hd} (pool {hd_pool}) must be a multiple of "
-            f"{align} up to 256 and query heads {Hq} a multiple of kv heads "
-            f"{Hkv}"
+            f"{name}: head_dim {hd} must be at most 256, held in a pool of "
+            f"head dim pool_head_dim({hd}) = {pool_head_dim(hd, quant)} "
+            f"(got {hd_pool}; the kernels copy rows in 16-byte pieces), and "
+            f"query heads {Hq} a multiple of kv heads {Hkv}"
         )
     B = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
@@ -183,7 +203,12 @@ def paged_attention_cuda(
                              block_tables, positions, 3)
     B, Hq, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    _, bs, Hkv, _ = k_layer.shape
+    _, bs, Hkv, hd_pool = k_layer.shape
+    if hd_pool != hd:  # a padded pool: q padded to it, at the true scale
+        out = paged_attention_cuda(pad_head(q, hd_pool), k_layer, v_layer,
+                                   block_tables, positions, scale=scale,
+                                   nsplit=nsplit)
+        return out[..., :hd].contiguous()
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -201,7 +226,7 @@ def paged_attention_cuda(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.raise_on("paged_decode", key, rc)
-    LAUNCHES[key] += 1
+    _launched(key)
     SPLITS[key] = nsplit
     return out
 
@@ -224,7 +249,12 @@ def paged_prefill_attention_cuda(
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    _, bs, Hkv, _ = k_layer.shape
+    _, bs, Hkv, hd_pool = k_layer.shape
+    if hd_pool != hd:  # a padded pool: q padded to it, at the true scale
+        out = paged_prefill_attention_cuda(
+            pad_head(q, hd_pool), k_layer, v_layer, block_tables, positions,
+            scale=scale, window=window)
+        return out[..., :hd].contiguous()
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
@@ -239,7 +269,7 @@ def paged_prefill_attention_cuda(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.raise_on("paged_prefill", key, rc)
-    LAUNCHES[key] += 1
+    _launched(key)
     return out
 
 

@@ -11,10 +11,14 @@ partitionable mode), reproduced bit for bit in integer ops:
 4. ``u = bitcast_f32((bits >> 9) | 0x3F800000) - 1``
 
 so a stream sampled by the port equals the JAX engine's token for token,
-and the token at p is a pure function of (logits, seed, p). The draw is a
-few hundred integer operations on B words, so it runs on the host in
-numpy (uint32 words held in uint64, masked to 32 bits after every add
-and shift) instead of as hundreds of tiny kernel launches on the card.
+and the token at p is a pure function of (logits, seed, p). A draw is a
+few hundred integer operations on two 32-bit words, so it runs on the
+host in Python integers, one row at a time (masked to 32 bits after
+every add and shift), instead of as hundreds of tiny kernel launches on
+the card. The engine knows every seed and position on the host before a
+step, so it computes the draws there, for the rows that sample, and
+stages them with the step's other inputs: a sampling step reads nothing
+back from the device.
 """
 from __future__ import annotations
 
@@ -25,12 +29,8 @@ _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x, r: int):
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def threefry2x32(k0, k1, c0, c1):
-    """Threefry-2x32 with 20 rounds on uint64 arrays holding uint32 words;
+def threefry2x32(k0: int, k1: int, c0: int, c1: int) -> tuple[int, int]:
+    """Threefry-2x32 with 20 rounds on uint32 words held in Python ints;
     returns the two output words."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (c0 + k0) & _M32
@@ -38,27 +38,34 @@ def threefry2x32(k0, k1, c0, c1):
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
     return x0, x1
 
 
 def keyed_uniform(seeds, positions) -> torch.Tensor:
     """``jax.random.uniform(fold_in(PRNGKey(seed), position))`` per row, as
     a [B] f32 CPU tensor in [0, 1). seeds: [B] uint32 values (any integer
-    dtype); positions: [B] non-negative ints. Tensors on a card are read
-    back first, which waits for the work that produced them."""
+    dtype); positions: [B] non-negative ints; numpy arrays or CPU tensors.
+    A tensor on a card raises: reading it back would wait for the device,
+    so the caller computes the draws from its host values."""
     def host(x):
-        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-        return x.astype(np.int64).astype(np.uint64) & _M32
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cpu":
+                raise ValueError(
+                    f"keyed_uniform takes host values, got a tensor on "
+                    f"{x.device}: stage the draws from the host's seeds and "
+                    f"positions")
+            x = x.numpy()
+        return np.asarray(x).astype(np.int64).tolist()
 
-    s, p = host(seeds), host(positions)
-    zero = np.zeros_like(s)
-    k0, k1 = threefry2x32(zero, s, zero, p)
-    b0, b1 = threefry2x32(k0, k1, zero, zero)
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
-    u = bits.astype(np.uint32).view(np.float32) - np.float32(1.0)
+    bits = []
+    for s, p in zip(host(seeds), host(positions)):
+        k0, k1 = threefry2x32(0, s & _M32, 0, p & _M32)
+        b0, b1 = threefry2x32(k0, k1, 0, 0)
+        bits.append(((b0 ^ b1) >> 9) | 0x3F800000)
+    u = np.asarray(bits, np.uint32).view(np.float32) - np.float32(1.0)
     return torch.from_numpy(u)
 
 
@@ -78,22 +85,21 @@ def apply_allow_mask(logits: torch.Tensor, mask) -> torch.Tensor:
     return logits.masked_fill(~allow, float("-inf"))
 
 
-def _sampled_rows(logits, seeds, positions, temperature, top_k, top_p):
-    """Temperature / top-k / top-p rows through one full descending sort;
-    returns [B] int32 token ids."""
+def _sampled_rows(logits, u, temperature, top_k, top_p):
+    """Temperature / top-k / top-p rows through one full descending sort,
+    drawing row b at ``u[b]``; returns [B] int32 token ids. Every control
+    lies on logits' device."""
     V = logits.shape[-1]
     dev = logits.device
-    u = keyed_uniform(seeds, positions).to(dev)
-    temp = torch.clamp(temperature.to(dev).float(), min=1e-6)
+    temp = torch.clamp(temperature.float(), min=1e-6)
     scaled = logits.float() / temp[:, None]
     # stable descending sort: equal logits keep index order, as lax.top_k
     srt, idx = torch.sort(scaled, dim=-1, descending=True, stable=True)
     ranks = torch.arange(V, device=dev)
-    top_k = top_k.to(dev)
     k_eff = torch.where(top_k > 0, top_k, torch.full_like(top_k, V))
     srt = srt.masked_fill(ranks[None, :] >= k_eff[:, None], float("-inf"))
     probs = torch.softmax(srt, dim=-1)
-    top_p = top_p.to(dev).float()
+    top_p = top_p.float()
     p_eff = torch.where((top_p > 0.0) & (top_p < 1.0), top_p,
                         torch.ones_like(top_p))
     # exclusive cumulative mass below p: rank 0 always survives
@@ -101,30 +107,37 @@ def _sampled_rows(logits, seeds, positions, temperature, top_k, top_p):
     srt = srt.masked_fill(~keep, float("-inf"))
     probs = torch.softmax(srt, dim=-1)
     cdf = torch.cumsum(probs, dim=-1)
-    pick = torch.searchsorted(cdf, u[:, None].contiguous(), right=True)
+    pick = torch.searchsorted(cdf, u[:, None].float().contiguous(),
+                              right=True)
     pick = pick.clamp(max=V - 1)
     return torch.gather(idx, 1, pick)[:, 0].to(torch.int32)
 
 
-def sample_tokens(
-    logits: torch.Tensor, positions: torch.Tensor, sample: dict
-) -> torch.Tensor:
+def greedy_rows(sample: dict) -> torch.Tensor:
+    """[B] bool: the rows ``sample`` decodes greedily (temperature <= 0 or
+    top_k == 1), on the controls' device."""
+    return (sample["temperature"] <= 0.0) | (sample["top_k"] == 1)
+
+
+def sample_tokens(logits: torch.Tensor, sample: dict) -> torch.Tensor:
     """One token per row of ``logits`` [B, V] f32 -> [B] int32.
 
-    ``positions`` [B] is the absolute position of the token being sampled.
-    ``sample`` holds [B] tensors ``seeds`` (uint32 values), ``temperature``
-    (<= 0 -> greedy), ``top_k`` (0 or -1 -> off), ``top_p`` (>= 1 -> off)
-    and optionally ``mask`` (see ``apply_allow_mask``). The controls may
-    live on the CPU: when every row is greedy the decision is taken there
-    and the sort is skipped."""
+    ``sample`` holds ``all_greedy``, a host bool: whether every row is
+    greedy, and so whether the sort runs at all. With True no other key
+    is read. Otherwise it holds [B] tensors on logits' device:
+    ``temperature`` (<= 0 -> greedy), ``top_k`` (0 or -1 -> off),
+    ``top_p`` (>= 1 -> off), the row's draw ``uniform`` (``keyed_uniform``
+    of its seed at the position of the sampled token, staged by the
+    caller) and optionally ``mask`` (see ``apply_allow_mask``). Nothing
+    here reads the device back."""
     logits = apply_allow_mask(logits, sample.get("mask"))
-    temperature = sample["temperature"]
-    greedy_rows = (temperature <= 0.0) | (sample["top_k"] == 1)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if bool(greedy_rows.all()):
+    if sample["all_greedy"]:
         return greedy
-    sampled = _sampled_rows(
-        logits, sample["seeds"], positions, temperature,
-        sample["top_k"], sample["top_p"],
-    )
-    return torch.where(greedy_rows.to(logits.device), greedy, sampled)
+    controls = [sample[k] for k in ("temperature", "top_k", "top_p")]
+    if any(t.device != logits.device for t in controls):
+        raise ValueError(
+            f"sampling controls must lie on the logits' device "
+            f"{logits.device}, got {[str(t.device) for t in controls]}")
+    sampled = _sampled_rows(logits, sample["uniform"], *controls)
+    return torch.where(greedy_rows(sample), greedy, sampled)

@@ -1,6 +1,6 @@
 """Continuous-batching LLM serving of the port: paged KV cache
-(``kv_cache.py``), the device side (``executor.py``) and the scheduler
-(``engine.py``)."""
+(``kv_cache.py``), the model steps and their CUDA graphs (``decode.py``),
+the device side (``executor.py``) and the scheduler (``engine.py``)."""
 from __future__ import annotations
 
 from ray_tpu_torch.exceptions import EngineDiedError, RequestCancelledError

@@ -12,20 +12,38 @@ sequences.
 
 Batch sizes pad to ``batch_buckets`` and token/context lengths to
 ``length_buckets`` (``serve/_shapes.py``), as in the JAX engine, so a
-model step sees a closed set of shapes. Sampling runs on the device
+model step sees a closed set of shapes: on a card each decode signature
+is one captured CUDA graph (``decode.py``), so a decode step costs the
+host a few copies and one graph launch. Sampling runs on the device
 inside the model step, keyed by (request seed, absolute position)
-(``ops/sampling.py``), so a request's stream is the same solo or batched
-and the same as the JAX engine's on the same weights.
+(``ops/sampling.py``; the draws are computed on the host and staged with
+the step), so a request's stream is the same solo or batched and the
+same as the JAX engine's on the same weights.
+
+The decode loop is pipelined with a one-step sync lag (dispatch-ahead),
+as the JAX engine's: step N+1 is fed straight from step N's sampled ids,
+still on the device, and the host syncs step N's ids after dispatching
+N+1, so bucketing, table packing and scheduling run while the device
+computes. Any change of the batch (a join, a finish, an eviction, a row
+at its token budget) first collapses the lag: the pending step is
+reconciled on the host and the next one dispatched from host tokens.
+EOS and cancel are reconciled when the lagged tokens arrive (at most one
+wasted speculative row per finished request), and a row's blocks are
+released exactly once, after its last in-flight step; blocks freed while
+a step is in flight are quarantined until the next sync
+(``kv_cache.flush_quarantine``). Prefill syncs its first tokens at once
+(lag 0).
 
 ``EngineConfig.quantization`` ("int8" | "fp8") serves from quantized
 weights and a quantized pool (``ops/quantization.py``).
 
 What this slice leaves out of the JAX engine: prefix caching and
 copy-on-write, the host KV tier, preemption, speculative decoding,
-structured output, stop sequences, deadlines, admission-queue limits,
-sharded executors, observability, and the dispatch-ahead decode pipeline
-— decode here is synchronous (lag 0): each step syncs its own ids. The
-head of the admission queue blocks the requests behind it until it fits.
+structured output (so no batch forces the lag to collapse), stop
+sequences, deadlines, admission-queue limits, sharded executors,
+observability beyond ``stats()`` and the sync records of
+``debug_dump()``, and graphs for prefill (it runs eagerly). The head of
+the admission queue blocks the requests behind it until it fits.
 """
 from __future__ import annotations
 
@@ -49,6 +67,9 @@ from ray_tpu_torch.serve.llm.executor import SingleDeviceExecutor
 from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
 
 _DONE = object()  # stream sentinel
+
+# sync records kept for debug_dump()
+_FLIGHT_RECORDS = 256
 
 # sanity ceiling for max_new_tokens (submit() also checks max_seq_len)
 _MAX_NEW_TOKENS_CAP = 1 << 20
@@ -133,7 +154,11 @@ class _Request:
     __slots__ = (
         "id", "prompt", "sampling", "out", "generated", "reserved_blocks",
         "drawn_blocks", "prefill_done", "started", "table_np", "table_key",
-        "done", "blocks_released",
+        "done",
+        # dispatch-ahead decode: dispatched-but-unreconciled steps that
+        # include this row, and whether its KV blocks went back to the
+        # pool (exactly-once release under the lag)
+        "inflight", "blocks_released",
     )
 
     def __init__(self, req_id, prompt, sampling: SamplingParams):
@@ -149,11 +174,24 @@ class _Request:
         self.table_np: np.ndarray | None = None
         self.table_key: tuple | None = None
         self.done = False
+        self.inflight = 0
         self.blocks_released = False
 
     @property
     def total_len(self) -> int:
         return len(self.prompt) + len(self.generated)
+
+
+@dataclass
+class _PendingDecode:
+    """One dispatched-but-unsynced decode step: its ids (still on the
+    device; row i belongs to ``batch[i]``, padding rows are garbage) and
+    the exact batch it was dispatched over. The steady state keeps one in
+    flight: step N+1 feeds from ``tokens`` and the host syncs N's ids one
+    step behind."""
+
+    tokens: Any          # executor.StepIds
+    batch: list          # the _Request rows of this dispatch, in order
 
 
 class LLMEngine:
@@ -236,7 +274,14 @@ class LLMEngine:
         self._thread: threading.Thread | None = None
         self._stopped = False
         self._failed: EngineDiedError | None = None
-        self._scratch: dict[tuple, np.ndarray] = {}
+        # the one in-flight decode step (None when the lag is collapsed)
+        self._pending: _PendingDecode | None = None
+        # reusable numpy staging, two buffers per (name, shape) (see
+        # _scratch_buf)
+        self._scratch: dict[tuple, list] = {}
+        self._sync_bytes_total = 0
+        # one record per token sync: kind, rows, bytes and lag
+        self._flight: deque[dict] = deque(maxlen=_FLIGHT_RECORDS)
         # "prefill" | "decode" | None: drives prefill/decode alternation
         self.last_step_kind: str | None = None
         # model calls made, by kind ("prefill" counts whole-prompt and
@@ -302,7 +347,8 @@ class LLMEngine:
 
     def step(self) -> bool:
         """One scheduler iteration: admit what fits, then EITHER one
-        prefill call OR one batched decode step. Returns False when idle."""
+        prefill call OR one batched decode step. Returns False when idle
+        (nothing waiting, running or in flight)."""
         with self._lock:
             self._admit_locked()
             if self._prefilling and (
@@ -313,7 +359,9 @@ class LLMEngine:
                 self._prefill_chunk_locked()
                 self.last_step_kind = "prefill"
                 return True
-            if self._running:
+            if self._running or self._pending is not None:
+                # a pending step with nothing running still needs a step:
+                # its tokens are reconciled and its rows' blocks freed
                 self._decode_locked()
                 self.last_step_kind = "decode"
                 return True
@@ -333,6 +381,38 @@ class LLMEngine:
             )
             req.out.put(_DONE)
             return True
+
+    def stats(self) -> dict:
+        """The reference engine's ``stats()`` keys that this engine
+        fills."""
+        with self._lock:
+            return {
+                "waiting": len(self._waiting),
+                "prefilling": len(self._prefilling),
+                "running": len(self._running),
+                "kv_used_blocks": self.cache.used_blocks,
+                "num_compiled_shapes": self.num_compiled_shapes,
+                "host_sync_bytes_total": self._sync_bytes_total,
+                "decode_inflight": 1 if self._pending is not None else 0,
+                "failed": self._failed is not None,
+            }
+
+    @property
+    def fns(self):
+        """The executor's ``DecodeFns`` (signature accounting, graphs)."""
+        return self.executor.fns
+
+    @property
+    def num_compiled_shapes(self) -> int:
+        return self.fns.num_compiled_shapes
+
+    def debug_dump(self) -> dict:
+        """The recent token-sync records (``steps``: kind, batch,
+        ``sync_bytes``, ``sync_lag``) and the pool's accounting."""
+        with self._lock:
+            return {"steps": list(self._flight),
+                    "cache": self.cache.debug_snapshot(),
+                    "stats": self.stats()}
 
     def shutdown(self) -> None:
         """Stop stepping, fail every pending stream and return all KV
@@ -357,11 +437,14 @@ class LLMEngine:
 
     def _release_blocks_locked(self, r: _Request) -> None:
         """Return an admitted request's blocks and leftover reservation to
-        the pool, exactly once."""
-        if r.blocks_released or r.reserved_blocks == 0:
+        the pool EXACTLY ONCE, respecting the dispatch lag: while the row
+        is in an unreconciled step (``inflight > 0``) release waits for
+        the reconcile that retires it, and blocks freed while any step is
+        in flight are quarantined until the next sync."""
+        if r.blocks_released or r.reserved_blocks == 0 or r.inflight > 0:
             return
         r.blocks_released = True
-        self.cache.free(r.id)
+        self.cache.free(r.id, quarantine=self._pending is not None)
         leftover = r.reserved_blocks - r.drawn_blocks
         if leftover > 0:
             self.cache.release_reservation(leftover)
@@ -374,7 +457,7 @@ class LLMEngine:
             self._prefilling.remove(r)
         else:
             self._waiting.remove(r)
-        r.done = True
+        r.done = True  # before release: an in-flight row defers it
         self._release_blocks_locked(r)
 
     def _try_admit_one_locked(self, req: _Request) -> bool:
@@ -469,7 +552,10 @@ class LLMEngine:
             toks_dev = self.executor.prefill_chunk(
                 tokens, lengths, starts, tables, sample=sample
             )
-        host = self.executor.sync_tokens(toks_dev)
+        # first tokens sync at once (lag 0): the first token must not wait
+        # for the next decode step
+        host = self._sync_tokens_locked(toks_dev, "prefill", len(batch),
+                                        lag=0)
         self.num_prefill_calls += 1
         for i, (r, n) in enumerate(zip(batch, ns)):
             r.prefill_done += n
@@ -481,39 +567,106 @@ class LLMEngine:
                     self._running.append(r)
 
     def _decode_locked(self) -> None:
-        """One batched decode step over every running sequence, synced at
-        once (lag 0)."""
+        """One pipelined decode iteration. Steady state (the eligible
+        batch is exactly the batch of the step in flight): dispatch step
+        N+1 fed from step N's ids on the device, THEN sync N's ids, so the
+        host work above the dispatch overlaps N on the device and the
+        sync finds N done. Any batch change first collapses the lag:
+        reconcile the pending step, rebuild the batch and dispatch from
+        host tokens."""
         bs = self.cfg.block_size
-        batch = list(self._running)
+        pending = self._pending
+
+        def eligible() -> list[_Request]:
+            # the budget counts the in-flight token: a row at
+            # max_new_tokens - 1 with one token in flight is not
+            # dispatched again (its last token arrives at reconcile)
+            return [r for r in self._running
+                    if len(r.generated) + r.inflight
+                    < r.sampling.max_new_tokens]
+
+        batch = eligible()
+        # list equality is element identity here: the same _Request
+        # objects in the same order <=> nothing joined, finished or left
+        steady = pending is not None and batch == pending.batch
+        if pending is not None and not steady:
+            self._reconcile_locked(pending)
+            pending = None
+            batch = eligible()
+        if not batch:
+            return  # a drain step: the reconcile above retired the lag
         for r in batch:
-            # the newest token's K/V lands at position total_len - 1
-            r.drawn_blocks += self.cache.ensure_capacity(r.id, r.total_len)
+            # the effective length counts the in-flight token: this
+            # dispatch writes its K/V at position eff - 1
+            eff = r.total_len + r.inflight
+            r.drawn_blocks += self.cache.ensure_capacity(r.id, eff)
         B = pad_to_bucket(len(batch), self._batch_buckets)
         ctx = pad_to_bucket(
-            max(max(r.total_len, self.cache.num_allocated(r.id) * bs)
-                for r in batch),
+            max(max(r.total_len + r.inflight,
+                    self.cache.num_allocated(r.id) * bs) for r in batch),
             self._length_buckets,
         )
         nb = ctx // bs
-        tokens = self._scratch_buf("dec_tokens", (B,), np.int32)
         positions = self._scratch_buf("dec_positions", (B,), np.int32)
         tables = self._scratch_buf("dec_tables", (B, nb), np.int32)
-        tokens[:] = 0
-        positions[:] = 0
-        tables[:] = 0
+        # reused buffers: re-zero padding rows (a stale table row could
+        # point at blocks now owned by a live sequence)
+        positions[len(batch):] = 0
+        tables[len(batch):] = 0
         for i, r in enumerate(batch):
-            tokens[i] = r.generated[-1]
-            positions[i] = r.total_len - 1
+            positions[i] = r.total_len + r.inflight - 1
             tables[i] = self._table_for(r, nb)
-        toks_dev = self.executor.decode_step(
+        if steady:
+            # step N+1 fed from step N's ids without a host round trip
+            tokens = pending.tokens
+        else:
+            tokens = self._scratch_buf("dec_tokens", (B,), np.int32)
+            tokens[len(batch):] = 0
+            for i, r in enumerate(batch):
+                tokens[i] = r.generated[-1]
+        nxt = self.executor.decode_step(
             tokens, positions, tables,
             sample=self._sample_args_locked(batch, B),
         )
-        host = self.executor.sync_tokens(toks_dev)
         self.num_decode_steps += 1
-        for i, r in enumerate(batch):
-            self._emit_token_locked(r, int(host[i]))
+        for r in batch:
+            r.inflight += 1
+        self._pending = _PendingDecode(tokens=nxt, batch=batch)
+        if steady:
+            # reconcile step N only after dispatching N+1
+            self._reconcile_locked(pending)
+
+    def _reconcile_locked(self, pending: _PendingDecode) -> None:
+        """Collapse the lag for one in-flight decode step: sync its ids,
+        flush the quarantine (the sync proves every earlier dispatch
+        executed), then emit per row. Rows that ended after the dispatch
+        (EOS raced the lag, cancel) drop their speculative token and
+        release their blocks, exactly once."""
+        if self._pending is pending:
+            self._pending = None
+        toks = self._sync_tokens_locked(pending.tokens, "decode",
+                                        len(pending.batch), lag=1)
+        self.cache.flush_quarantine()
+        for i, r in enumerate(pending.batch):
+            r.inflight -= 1
+            if r.done:
+                self._release_blocks_locked(r)
+            else:
+                self._emit_token_locked(r, int(toks[i]))
         self._running = [r for r in self._running if not r.done]
+
+    def _sync_tokens_locked(self, ids, kind: str, rows: int, *,
+                            lag: int) -> np.ndarray:
+        """THE device->host sync: a step's O(batch) int32 ids, metered.
+        ``lag`` is the number of dispatches between the step that made
+        them and this sync (0: prefill's immediate sync; 1: the pipelined
+        decode)."""
+        toks = self.executor.sync_tokens(ids)
+        self._sync_bytes_total += toks.nbytes
+        self._flight.append({"kind": kind, "batch": rows,
+                             "sync_bytes": int(toks.nbytes),
+                             "sync_lag": lag})
+        return toks
 
     def _sample_args_locked(self, batch: list, B: int) -> dict:
         """Per-row sampling controls as [B] host arrays; padding rows are
@@ -536,13 +689,21 @@ class LLMEngine:
                 "top_p": top_p}
 
     def _scratch_buf(self, name: str, shape: tuple, dtype) -> np.ndarray:
-        """Reusable host staging buffer per (name, shape). One buffer is
-        enough: every step syncs before the next one restages it."""
+        """Reusable numpy staging buffer for one (name, shape) slot. Two
+        buffers alternate per slot, as in the reference engine, where
+        ``jnp.asarray`` may alias a host buffer that a dispatch still
+        reads. Here the executor copies a staged array into its own
+        pinned pair at dispatch, so the alternation keeps the reference's
+        invariant rather than guarding a copy; the executor's pinned
+        pairs are the ones the lag-1 sync protects. Callers overwrite
+        every element they use and re-zero padding tails."""
         key = (name, shape)
-        buf = self._scratch.get(key)
-        if buf is None:
-            buf = self._scratch[key] = np.zeros(shape, dtype)
-        return buf
+        slot = self._scratch.get(key)
+        if slot is None:
+            slot = self._scratch[key] = [np.zeros(shape, dtype),
+                                         np.zeros(shape, dtype), 0]
+        slot[2] ^= 1
+        return slot[slot[2]]
 
     def _emit_token_locked(self, r: _Request, tok: int) -> None:
         r.generated.append(tok)
@@ -553,6 +714,8 @@ class LLMEngine:
         ):
             r.done = True
             r.out.put(_DONE)
+            # last: a row ending while its next token is in flight defers
+            # the free to that step's reconcile (exactly-once release)
             self._release_blocks_locked(r)
 
     def _fan_out_locked(self, err: BaseException) -> None:
@@ -565,6 +728,7 @@ class LLMEngine:
         self._waiting.clear()
         self._prefilling = []
         self._running = []
+        self._pending = None  # the in-flight step dies with the engine
         self.cache.release_all()
 
     # ---------------- background stepping ----------------

@@ -1,12 +1,13 @@
 """Paged KV-cache manager: preallocated block pool + per-sequence block
-tables (counterpart of ``ray_tpu/serve/llm/kv_cache.py`` without its
-prefix cache, host tier and quarantine).
+tables and the dispatch-ahead quarantine (counterpart of
+``ray_tpu/serve/llm/kv_cache.py`` without its prefix cache and host tier).
 
 The pool is ONE tensor pair on the device,
 
-    k, v: [n_layer, num_blocks, block_size, n_kv_head, head_dim]
+    k, v: [n_layer, num_blocks, block_size, n_kv_head, pool_head_dim]
 
-and sequences own lists of physical block ids in logical-position order.
+(``pool_head_dim`` is the head dim rounded up to a 16-byte row, the same
+for every aligned head dim; ``ops/kv_cache.py``) and sequences own lists of physical block ids in logical-position order.
 Block 0 is the garbage sink for padding writes, so the allocator hands
 out blocks [1, num_blocks). With ``quantization`` set, each side of the
 pool is a ``QuantizedKV``: int8 or fp8-e4m3 data of that shape and an f32
@@ -15,6 +16,14 @@ per written (slot, kv head). Admission reserves a sequence's worst-case
 block count (prompt + max_new_tokens) up front, so a running sequence never
 fails a mid-flight append. The free list is LIFO: a just-freed block is
 reused first.
+
+Blocks freed while a decode step is still in flight (the engine's lag-1
+pipeline) can park in a quarantine instead of the free list, until the
+engine's next token sync proves that the step has executed
+(``free(..., quarantine=True)``, ``flush_quarantine``). The port's one
+CUDA stream already orders a later write to a reused block after the
+step; the quarantine keeps the reference's host bookkeeping and its
+exactly-once accounting (``debug_snapshot``).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ray_tpu_torch.ops.kv_cache import pool_head_dim
 from ray_tpu_torch.ops.quantization import (
     QuantizedKV,
     quant_dtype,
@@ -56,11 +66,11 @@ class PagedKVCache:
 
     def __init__(self, cfg: KVCacheConfig):
         self.cfg = cfg
+        kind = resolve_quantization(cfg.quantization)
         shape = (
             cfg.n_layer, cfg.num_blocks, cfg.block_size,
-            cfg.n_kv_head, cfg.head_dim,
+            cfg.n_kv_head, pool_head_dim(cfg.head_dim, kind is not None),
         )
-        kind = resolve_quantization(cfg.quantization)
         if kind is not None:
             def side():
                 # zeroed as bytes, then viewed in the kind's dtype
@@ -74,8 +84,13 @@ class PagedKVCache:
             self.k = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
             self.v = torch.zeros(shape, dtype=cfg.dtype, device=cfg.device)
         self._free: list[int] = list(range(1, cfg.num_blocks))
+        # blocks freed while a device step was in flight: they return to
+        # the free list at the engine's next token sync (flush_quarantine)
+        self._quarantine: list[int] = []
         self._tables: dict[Any, list[int]] = {}
         self._reserved = 0
+        self._allocated_total = 0  # blocks ever drawn from the free list
+        self._freed_total = 0      # blocks ever returned by free()
         # bumped whenever a sequence's table changes — lets the engine
         # cache host-side numpy tables
         self._versions: dict[Any, int] = {}
@@ -132,26 +147,62 @@ class PagedKVCache:
                 )
             table.append(self._free.pop())
             self._reserved -= 1
+            self._allocated_total += 1
             appended += 1
         if appended:
             self._versions[seq_id] += 1
         return appended
 
-    def free(self, seq_id) -> int:
-        """Return a finished sequence's blocks to the free list; -> count."""
+    def free(self, seq_id, *, quarantine: bool = False) -> int:
+        """Return a finished sequence's blocks to the free list, or with
+        ``quarantine`` (a decode step is in flight) to the quarantine until
+        ``flush_quarantine``; -> count."""
         table = self._tables.pop(seq_id)
         self._versions.pop(seq_id, None)
-        self._free.extend(reversed(table))  # LIFO: newest block reused first
+        # LIFO: newest block reused first
+        (self._quarantine if quarantine else self._free).extend(
+            reversed(table))
+        self._freed_total += len(table)
         return len(table)
 
+    def flush_quarantine(self) -> int:
+        """Move quarantined blocks to the free list; -> count. The engine
+        calls it right after a token sync, which proves that every step
+        dispatched before it has executed."""
+        n = len(self._quarantine)
+        self._free.extend(self._quarantine)
+        self._quarantine.clear()
+        return n
+
     def release_all(self) -> int:
-        """Free every sequence and drop all reservations (shutdown and
-        failure path); -> blocks returned."""
+        """Free every sequence, empty the quarantine and drop all
+        reservations (shutdown and failure path); -> blocks returned."""
         returned = sum(self.free(s) for s in list(self._tables))
+        self.flush_quarantine()
         self._reserved = 0
         return returned
 
     # ---------------- views ----------------
+
+    @property
+    def used_blocks(self) -> int:
+        """Blocks held by live tables or quarantined."""
+        return self.cfg.usable_blocks - len(self._free)
+
+    def debug_snapshot(self) -> dict:
+        """JSON-safe accounting of the block pool (the reference's keys
+        that this cache has)."""
+        return {
+            "num_blocks": self.cfg.num_blocks,
+            "block_size": self.cfg.block_size,
+            "used_blocks": self.used_blocks,
+            "free_blocks": len(self._free),
+            "quarantined_blocks": len(self._quarantine),
+            "reserved_blocks": self._reserved,
+            "live_sequences": len(self._tables),
+            "allocated_total": self._allocated_total,
+            "freed_total": self._freed_total,
+        }
 
     def block_table(self, seq_id, pad_to: int) -> np.ndarray:
         """[pad_to] int32 table, the unallocated tail padded with the

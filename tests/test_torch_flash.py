@@ -156,11 +156,13 @@ def test_flash_lse_is_base2_logsumexp():
     assert (lse - want).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("D,causal", [(16, True), (48, True), (48, False)])
+@pytest.mark.parametrize("D,causal", [(16, True), (48, True), (48, False),
+                                      (160, True), (160, False),
+                                      (200, True)])
 def test_head_padded_flash_matches_unpadded(D, causal):
     """The kernels' wrappers run a head dim the kernels are not built for
-    (16: GPT-2 tiny; 48) zero-padded to the next built width (32, 64) at
-    the TRUE scale 1/sqrt(D), then sliced back. Around the plain versions,
+    (16: GPT-2 tiny; 48; 160 and 200) zero-padded to the next built width
+    (32, 64, 256) at the TRUE scale 1/sqrt(D), then sliced back. Around the plain versions,
     that gives the unpadded output, lse and gradients within f32 rounding
     (1e-6); the same padded run at the padded width's scale does not."""
     from ray_tpu_torch.ops import attention as at
@@ -184,6 +186,15 @@ def test_head_padded_flash_matches_unpadded(D, causal):
     wrong, _ = at.head_padded(at.flash_forward_reference, q, k, v,
                               causal=causal, scale=1 / math.sqrt(width))
     assert (wrong - o).abs().max().item() > 1e-3
+
+
+def test_head_padded_refuses_heads_above_256():
+    from ray_tpu_torch.ops import attention as at
+
+    x = torch.zeros(1, 1, 4, 264)
+    with pytest.raises(ValueError, match="above 256"):
+        at.head_padded(at.flash_forward_reference, x, x, x, causal=True,
+                       scale=1.0)
 
 
 def test_flash_wrappers_refuse_cpu_tensors():

@@ -125,20 +125,29 @@ def test_prefill_kernel_matches_plain(cuda, dtype, S, starts, lens, gqa,
     _assert_close(got[valid], want[valid], dtype)  # padding rows discarded
 
 
-def test_prefill_wrapper_refuses_wide_bf16_heads(cuda):
-    """Heads above 256 and heads that are not a multiple of 8 are refused
-    before any launch; a bf16 q at 256, and an f32 q at 256 (both on B5's
-    CUDA-core walk), run and match their plain versions."""
+def test_prefill_wrapper_takes_heads_up_to_256(cuda):
+    """Heads above 256, and a pool not held at ``pool_head_dim``, are
+    refused before any launch; hd 100 in its padded pool (104), and a
+    bf16 q and an f32 q at 256 (both on B5's CUDA-core walk), run and
+    match their plain versions."""
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
 
     before = dict(pa.LAUNCHES)
-    for hd in (264, 100):
+    for hd in (264, 100):  # 100: its pool is not padded to 104
         q, k, v, tables, pos, _ = _prefill_inputs(
             cuda, torch.bfloat16, [0], 8, [8], 1, 1, hd, 16)
-        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        with pytest.raises(ValueError, match="pool_head_dim"):
             pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
     assert pa.LAUNCHES == before
+    q, k, v, tables, pos, _ = _prefill_inputs(
+        cuda, torch.bfloat16, [0], 8, [8], 1, 1, 100, 16)
+    k, v = _padded_pool(k, v)
+    got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    _assert_close(got, paged_prefill_attention(q, k, v, tables, pos),
+                  torch.bfloat16)
     q, k, v, tables, pos, _ = _prefill_inputs(
         cuda, torch.bfloat16, [0], 8, [8], 1, 1, 256, 16)
     for dtype in (torch.bfloat16, torch.float32):
@@ -146,7 +155,59 @@ def test_prefill_wrapper_refuses_wide_bf16_heads(cuda):
         got = pa.paged_prefill_attention_cuda(*args)
         torch.cuda.synchronize()
         _assert_close(got, paged_prefill_attention(*args), dtype)
-    assert pa.LAUNCHES["paged_prefill"] == before["paged_prefill"] + 2
+    assert pa.LAUNCHES["paged_prefill"] == before["paged_prefill"] + 3
+
+
+def _padded_pool(k, v, kind=None):
+    """A pool layer as ``PagedKVCache`` holds it: K and V zero-padded to
+    ``pool_head_dim`` (quantized after padding, with ``kind``)."""
+    from ray_tpu_torch.ops.kv_cache import pad_head, pool_head_dim
+
+    width = pool_head_dim(k.shape[-1], kind is not None)
+    k, v = pad_head(k, width), pad_head(v, width)
+    return _quantized(k, v, kind) if kind else (k, v)
+
+
+# ---- Queue C 2: B4/B4q and B5/B5q at head dims that are not a multiple
+# of the 16-byte row piece: the pool padded at allocation, q padded by the
+# wrapper at the true scale
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [100, 72])
+def test_paged_kernels_at_unaligned_head_dims_match_plain(cuda, kind, dtype,
+                                                          hd):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import (
+        paged_attention,
+        paged_prefill_attention,
+    )
+
+    suffix = f"_{kind}" if kind else ""
+    pool_dtype = torch.float32 if kind else dtype
+    lengths = [1, 17, 64, 200]
+    gen, k, v, tables = _case(cuda, pool_dtype, 4, 2, 2, hd, 16, 16,
+                              [-(-n // 16) for n in lengths], seed=hd)
+    k, v = _padded_pool(k, v, kind)
+    q = torch.randn(4, 4, hd, generator=gen, device=cuda).to(dtype)
+    pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                       device=cuda)
+    before = dict(pa.LAUNCHES)
+    got = pa.paged_attention_cuda(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    _assert_close(got, paged_attention(q, k, v, tables, pos), dtype)
+
+    q, k, v, tables, pos, valid = _prefill_inputs(
+        cuda, pool_dtype, [0, 5, 40], 45, [45, 30, 12], 2, 2, hd, 16)
+    k, v = _padded_pool(k, v, kind)
+    q = q.to(dtype)
+    got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos, window=24)
+    torch.cuda.synchronize()
+    want = paged_prefill_attention(q, k, v, tables, pos, window=24)
+    _assert_close(got[valid], want[valid], dtype)
+    assert {n: pa.LAUNCHES[n] - before[n] for n in before
+            if pa.LAUNCHES[n] != before[n]} == {
+        "paged_decode" + suffix: 1, "paged_prefill" + suffix: 1}
 
 
 # B5 with head dims wider than the tensor-core tiles (129-256): the
@@ -285,6 +346,7 @@ def test_quantized_prefill_kernel_large_and_small_scales(cuda, kind, k_mult):
 
 def test_quantized_wrappers_refuse_bad_pools_on_cuda(cuda):
     from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import paged_attention
     from ray_tpu_torch.ops.quantization import QuantizedKV
 
     gen, k, v, tables = _case(cuda, torch.float32, 1, 2, 1, 64, 16, 2, [2],
@@ -302,9 +364,18 @@ def test_quantized_wrappers_refuse_bad_pools_on_cuda(cuda):
         pa.paged_attention_cuda(q, k.data, v.data, tables, pos)
     narrow = _quantized(torch.zeros(3, 16, 2, 8, device=cuda),
                         torch.zeros(3, 16, 2, 8, device=cuda), "fp8")
-    with pytest.raises(ValueError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="pool_head_dim"):
         pa.paged_attention_cuda(q[..., :8].contiguous(), *narrow, tables, pos)
     assert pa.LAUNCHES == before
+    # head dim 8 in a 1-byte pool held at pool_head_dim 16 computes
+    narrow = _padded_pool(torch.randn(3, 16, 2, 8, device=cuda),
+                          torch.randn(3, 16, 2, 8, device=cuda), "fp8")
+    q8 = q[..., :8].contiguous()
+    got = pa.paged_attention_cuda(q8, *narrow, tables, pos)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_decode_fp8"] == before["paged_decode_fp8"] + 1
+    _assert_close(got, paged_attention(q8, *narrow, tables, pos),
+                  torch.float32)
 
 
 def test_gpt_cuda_backend_matches_torch_backend(cuda):
@@ -661,7 +732,7 @@ def test_decode_kernel_is_one_launch(cuda, kind):
 
 
 # ---- Queue C: the flash kernels at head dims they are not built for pad
-# to the next built width (exact), and refuse above 128
+# to the next built width (exact); 129-255 pad to 256, above 256 refused
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -688,12 +759,36 @@ def test_flash_kernels_pad_narrow_heads(cuda, dtype, D):
         _assert_close(got, want, dtype)
 
 
-def test_flash_kernels_refuse_heads_above_128(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,causal", [(100, 160, True), (100, 160, False),
+                                        (65, 256, True), (130, 256, False),
+                                        (1, 256, True)])
+def test_flash_kernels_at_wide_heads_match_plain(cuda, dtype, S, D, causal):
+    """B1-B3 at head dims 129-256 (the CUDA-core tiles of 32 rows; 160
+    zero-padded to 256 at the true scale) against their plain versions at
+    the true D; D 264 is refused before any launch."""
     from ray_tpu_torch.ops import attention as at
 
-    x = torch.zeros(1, 2, 8, 160, device=cuda, dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(D + S)
+    q, k, v, do = (torch.randn(2, 3, S, D, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    kw = dict(causal=causal, scale=D ** -0.5)
     before = dict(at.LAUNCHES)
-    with pytest.raises(ValueError, match="above 128"):
+    o, lse = at.flash_forward_cuda(q, k, v, **kw)
+    o_ref, lse_ref = at.flash_forward_reference(q, k, v, **kw)
+    grads = at.flash_backward_cuda(q, k, v, o_ref, lse_ref, do, **kw)
+    refs = at.flash_backward_reference(q, k, v, o_ref, lse_ref, do, **kw)
+    torch.cuda.synchronize()
+    assert {n: at.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    _assert_close(o, o_ref, dtype)
+    _assert_close(lse, lse_ref, dtype)
+    for got, want in zip(grads, refs):
+        assert got.shape == want.shape
+        _assert_close(got, want, dtype)
+    x = torch.zeros(1, 2, 8, 264, device=cuda, dtype=dtype)
+    before = dict(at.LAUNCHES)
+    with pytest.raises(ValueError, match="above 256"):
         at.flash_forward_cuda(x, x, x, causal=True, scale=1.0)
     assert at.LAUNCHES == before
 
@@ -737,3 +832,154 @@ def test_gpt_tiny_trains_on_cuda_with_padded_heads(cuda):
     opt = make_optimizer(model)
     losses = [train_step(model, opt, batch).item() for _ in range(4)]
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+# ---- the engine's decode step as a CUDA graph (serve/llm/decode.py) and
+# the lag-1 pipeline on the card
+
+LOGIT_TOL = 0.1  # chip_smoke.py's bar for logits of two bf16 paths
+
+
+def _graph_executor(dev, kind, num_blocks=64):
+    """An executor over a small bf16 GPT at GPT-2's head dim (64), its
+    pool holding three sequences prefilled from their prompts."""
+    import numpy as np
+
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.serve.llm.executor import SingleDeviceExecutor
+    from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
+
+    cfg = GPTConfig(vocab_size=512, max_seq_len=256, n_layer=2, n_head=4,
+                    d_model=256, d_mlp=1024, quantization=kind)
+    cache = PagedKVCache(KVCacheConfig(
+        n_layer=cfg.n_layer, n_kv_head=cfg.n_head, head_dim=cfg.head_dim,
+        num_blocks=num_blocks, block_size=16, dtype=cfg.dtype, device=dev,
+        quantization=kind))
+    ex = SingleDeviceExecutor(cfg, cache, seed=0)
+    rng = np.random.default_rng(0)
+    lengths = np.array([40, 7, 100, 1], np.int32)  # row 3: padding
+    tokens = rng.integers(0, 512, (4, 128)).astype(np.int32)
+    tables = np.zeros((4, 8), np.int32)
+    tables[:3] = np.arange(1, 25, dtype=np.int32).reshape(3, 8)
+    ids = ex.sync_tokens(ex.prefill(tokens, lengths, tables))
+    return ex, ids, lengths, tables
+
+
+def _sample_args(B, sampled):
+    import numpy as np
+
+    temp = np.zeros(B, np.float32)
+    if sampled:
+        temp[:3] = [0.8, 0.0, 1.2]
+    return {"seeds": np.arange(B, dtype=np.int64) + 7, "temperature": temp,
+            "top_k": np.zeros(B, np.int32),
+            "top_p": np.full(B, 0.9 if sampled else 1.0, np.float32)}
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+def test_decode_graph_matches_eager_step(cuda, kind, sampled):
+    """A decode step replayed from its captured graph gives the eager
+    step's ids on the same inputs, and a graph of the logits step gives
+    the eager logits within the engine bar; each replay launches its 2 B4
+    kernels on the device (from a profiler trace), the wrapper counting
+    only the capture's eager warm-up run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.benchmarks.engine_profile import paged_launches
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    ex, first, lengths, tables = _graph_executor(cuda, kind)
+    g = ex.stage_decode(first, lengths, tables, _sample_args(4, sampled))
+    assert g.sampled == sampled
+    eager = ex.fns.step(g.inputs, sampled).clone()
+    key = "paged_decode" + (f"_{kind}" if kind else "")
+    before = pa.LAUNCHES[key]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphed = g.run().clone()
+        again = g.run().clone()
+        torch.cuda.synchronize()
+    assert g.graph is not None and ex.fns.graphs_captured == 1
+    assert torch.equal(graphed, eager) and torch.equal(again, eager)
+    n_layer = ex.model.cfg.n_layer
+    assert pa.LAUNCHES[key] == before + n_layer  # the warm-up run
+    # on the device: the warm-up run, then each replay
+    assert paged_launches(prof) == {key: 3 * n_layer}
+
+    # the logits of the same step, eager and from a graph
+    model, cache = ex.model, ex.cache
+    args = (g.inputs["tokens"], g.inputs["positions"], g.inputs["tables"])
+    want, _, _ = model.decode_step(cache.k, cache.v, *args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        model.decode_step(cache.k, cache.v, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=ex.fns.pool):
+        out, _, _ = model.decode_step(cache.k, cache.v, *args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= LOGIT_TOL
+
+
+@pytest.mark.parametrize("kind", [None, "int8"])
+def test_two_lag1_steps_feed_on_the_device(cuda, kind):
+    """Step N+1 fed from step N's ids on the device (never synced first)
+    gives the ids of two eager steps fed from the host, and each sync
+    reads its own step's ids."""
+    ex, first, lengths, tables = _graph_executor(cuda, kind)
+    ref, _, _, _ = _graph_executor(cuda, kind)
+    sample = _sample_args(4, True)
+    step1 = ex.decode_step(first, lengths, tables, sample=sample)
+    step2 = ex.decode_step(step1, lengths + 1, tables, sample=sample)
+    got1, got2 = ex.sync_tokens(step1), ex.sync_tokens(step2)
+    want1 = ref.sync_tokens(ref.decode_step(first, lengths, tables,
+                                            sample=sample))
+    want2 = ref.sync_tokens(ref.decode_step(want1, lengths + 1, tables,
+                                            sample=sample))
+    assert (got1[:3] == want1[:3]).all() and (got2[:3] == want2[:3]).all()
+    assert ex.fns.replays == 2 and ex.fns.graphs_captured == 1
+
+
+def test_engine_decode_steps_make_no_host_sync(cuda):
+    """A warm engine pass runs every decode step from a captured graph,
+    with no host sync inside a dispatch (``set_sync_debug_mode("error")``
+    around each), and gives the first pass's streams."""
+    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+
+    cfg = GPTConfig(vocab_size=512, max_seq_len=256, n_layer=2, n_head=4,
+                    d_model=256, d_mlp=1024)
+    eng = LLMEngine(EngineConfig(model_config=cfg, num_blocks=128),
+                    auto_step=False)
+    reqs = [([1, 2, 3], {}), ([5] * 40, {"temperature": 0.9, "seed": 3}),
+            ([7] * 90, {})]
+
+    def run():
+        streams = [eng.submit(p, max_new_tokens=24, **kw) for p, kw in reqs]
+        while eng.step():
+            pass
+        return [list(s) for s in streams]
+
+    first = run()
+    graphs, steps = eng.fns.graphs_captured, eng.num_decode_steps
+    replays = eng.fns.replays
+    dispatch = eng.executor.decode_step
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eng.executor.decode_step = strict
+    assert run() == first
+    assert eng.fns.graphs_captured == graphs  # nothing captured again
+    assert eng.fns.replays - replays == eng.num_decode_steps - steps > 0
+    assert any(r["sync_lag"] == 1 for r in eng.debug_dump()["steps"])
+    snap = eng.cache.debug_snapshot()
+    assert snap["used_blocks"] == 0 and snap["freed_total"] == snap[
+        "allocated_total"]

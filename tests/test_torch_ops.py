@@ -180,3 +180,98 @@ def test_paged_prefill_plain_matches_jax(gqa, window, q_block):
     _close(out, paged_prefill_attention(*args, window=window))
     _close(out, paged_prefill_attention_pallas(*args, window=window,
                                                q_block=q_block))
+
+
+def test_pool_head_dim_pads_only_unaligned_heads():
+    """A pool is held at its head dim rounded up to a 16-byte row (8
+    elements, 16 for a 1-byte pool): GPT-2's 64 keeps its layout and
+    bytes, and the int8 pool stays (64 + 4) / 128 = 0.53125 of bf16's."""
+    from ray_tpu_torch.ops.kv_cache import pool_head_dim
+    from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
+
+    assert [pool_head_dim(h) for h in (64, 100, 72, 8, 1, 256)] == [
+        64, 104, 72, 8, 8, 256]
+    assert [pool_head_dim(h, True) for h in (64, 100, 72, 8, 256)] == [
+        64, 112, 80, 16, 256]
+    nbytes = {}
+    for kind in (None, "int8"):
+        cache = PagedKVCache(KVCacheConfig(
+            n_layer=2, n_kv_head=12, head_dim=64, num_blocks=4, block_size=16,
+            dtype=torch.bfloat16, quantization=kind))
+        assert cache.k.shape[-1] == 64
+        nbytes[kind] = cache.nbytes()
+    assert nbytes[None] == 2 * 2 * 4 * 16 * 12 * 64 * 2
+    assert nbytes["int8"] / nbytes[None] == 0.53125
+    cache = PagedKVCache(KVCacheConfig(n_layer=1, n_kv_head=2, head_dim=100,
+                                       num_blocks=4, quantization="fp8"))
+    assert tuple(cache.k.shape) == (1, 4, 16, 2, 112)
+
+
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+def test_paged_plain_at_unaligned_head_dim_matches_pallas(kind):
+    """Head dim 100: the port's pool is allocated at pool_head_dim (104,
+    or 112 for a 1-byte pool) and written by the port's write_kv, JAX's at
+    100 by its own; the port's plain decode and prefill attentions equal
+    the Pallas kernels in interpret mode (and the XLA versions), and the
+    padding columns stay zero."""
+    import jax.numpy as jnp
+    from ray_tpu.ops.kv_cache import (
+        paged_attention,
+        paged_prefill_attention,
+        write_kv,
+    )
+    from ray_tpu.ops.paged_attention import (
+        paged_attention_pallas,
+        paged_prefill_attention_pallas,
+    )
+    from ray_tpu.ops.quantization import QuantizedKV as JaxKV
+    from ray_tpu.ops.quantization import quant_dtype
+
+    from ray_tpu_torch.ops import kv_cache as port
+    from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
+
+    rng = np.random.default_rng(40)
+    starts = np.array([0, 3, 9], np.int32)
+    S, Hkv, gqa, hd, bs, NB = 12, 2, 2, 100, 8, 3
+    lens = np.array([12, 7, 10], np.int32)
+    num_blocks = 1 + len(starts) * NB
+    tables = _tables(rng, list(starts + S), bs, NB, shuffle=True)
+    cache = PagedKVCache(KVCacheConfig(
+        n_layer=1, n_kv_head=Hkv, head_dim=hd, num_blocks=num_blocks,
+        block_size=bs, dtype=torch.float32, quantization=kind))
+    shape = (num_blocks, bs, Hkv, hd)
+    if kind is None:
+        jk = jv = jnp.zeros(shape, jnp.float32)
+    else:
+        jk = jv = JaxKV(jnp.zeros(shape, quant_dtype(kind)),
+                        jnp.zeros(shape[:-1], jnp.float32))
+    # the whole context of every row, positions 0 .. start + S - 1
+    T = int((starts + S).max())
+    pos = np.broadcast_to(np.arange(T, dtype=np.int32), (3, T)).copy()
+    valid = pos < (starts + S)[:, None]
+    kk, vv = (rng.normal(size=(3, T, Hkv, hd)).astype(np.float32)
+              for _ in range(2))
+    jk, jv = write_kv(jk, jv, _j(kk), _j(vv), _j(pos), _j(tables),
+                      valid=_j(valid))
+    tk, tv = cache.k[0], cache.v[0]
+    port.write_kv(tk, tv, _t(kk), _t(vv), _t(pos), _t(tables),
+                  valid=_t(valid))
+    pad = (tk.data if kind else tk)[..., hd:]
+    assert pad.shape[-1] == port.pool_head_dim(hd, kind is not None) - hd
+    assert not pad.view(torch.uint8).any() if kind else not pad.any()
+
+    q = rng.normal(size=(3, Hkv * gqa, hd)).astype(np.float32)
+    dpos = starts + S - 1
+    out = port.paged_attention(_t(q), tk, tv, _t(tables), _t(dpos))
+    args = (_j(q), jk, jv, _j(tables), _j(dpos))
+    _close(out, paged_attention(*args))
+    _close(out, paged_attention_pallas(*args, interpret=True))
+
+    q = rng.normal(size=(3, S, Hkv * gqa, hd)).astype(np.float32)
+    qpos = starts[:, None] + np.arange(S, dtype=np.int32)[None, :]
+    qpos = np.where(np.arange(S)[None, :] < lens[:, None], qpos, 0)
+    qpos = qpos.astype(np.int32)
+    out = port.paged_prefill_attention(_t(q), tk, tv, _t(tables), _t(qpos))
+    args = (_j(q), jk, jv, _j(tables), _j(qpos))
+    _close(out, paged_prefill_attention(*args))
+    _close(out, paged_prefill_attention_pallas(*args, interpret=True))

@@ -62,6 +62,21 @@ def _controls(case, B, V, rng):
 CASES = ["greedy", "temperature", "top_k", "top_p", "mask"]
 
 
+def _staged(ctl, positions):
+    """The port's sampling inputs as the engine stages them from host
+    values: the controls, the keyed draw of each row at its sampled
+    position, and the all-greedy flag."""
+    from ray_tpu_torch.ops.sampling import keyed_uniform
+
+    out = {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.uint32
+                               else v)
+           for k, v in ctl.items() if v is not None and k != "seeds"}
+    out["uniform"] = keyed_uniform(ctl["seeds"], positions)
+    out["all_greedy"] = bool(((ctl["temperature"] <= 0)
+                              | (ctl["top_k"] == 1)).all())
+    return out
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_sample_tokens_matches_jax(case):
     import jax.numpy as jnp
@@ -78,10 +93,48 @@ def test_sample_tokens_matches_jax(case):
     jax_sample = {k: jnp.asarray(v) for k, v in ctl.items() if v is not None}
     ref = np.asarray(sample_tokens(jnp.asarray(logits),
                                    jnp.asarray(positions), jax_sample))
-    port_sample = {k: torch.from_numpy(v.astype(np.int64)
-                                       if v.dtype == np.uint32 else v)
-                   for k, v in ctl.items() if v is not None}
-    got = port(torch.from_numpy(logits), torch.from_numpy(positions),
-               port_sample)
+    port_sample = _staged(ctl, positions)
+    got = port(torch.from_numpy(logits), port_sample)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_staged_draws_match_keyed_sampling():
+    """Draws staged for the sampling rows alone (a greedy row's draw left
+    at 0, as the executor stages them) pick the ids of the full keyed
+    draws, which are JAX's; an all-greedy step reads no control; nothing
+    is read back from a device (a tensor off the CPU is refused)."""
+    import jax.numpy as jnp
+    from ray_tpu.ops.sampling import sample_tokens as jax_sample_tokens
+
+    from ray_tpu_torch.ops.sampling import (
+        greedy_rows,
+        keyed_uniform,
+        sample_tokens,
+    )
+
+    B, V = 6, 300
+    rng = np.random.default_rng(7)
+    logits = (rng.normal(size=(B, V)) * 3).astype(np.float32)
+    positions = rng.integers(0, 1000, B).astype(np.int32)
+    ctl = _controls("mask", B, V, rng)
+    want = np.asarray(jax_sample_tokens(
+        jnp.asarray(logits), jnp.asarray(positions),
+        {k: jnp.asarray(v) for k, v in ctl.items()}))
+    full = _staged(ctl, positions)
+    rows = ~greedy_rows(full).numpy()
+    assert 0 < rows.sum() < B
+    part = dict(full, uniform=torch.zeros(B))
+    part["uniform"][rows] = keyed_uniform(ctl["seeds"][rows],
+                                          positions[rows])
+    for staged in (full, part):
+        got = sample_tokens(torch.from_numpy(logits), staged)
+        np.testing.assert_array_equal(got.numpy(), want)
+    greedy = sample_tokens(torch.from_numpy(logits), {"all_greedy": True})
+    assert torch.equal(greedy, torch.from_numpy(logits).argmax(-1).to(
+        torch.int32))
+    meta = torch.zeros(B, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="host values"):
+        keyed_uniform(meta, meta)
+    with pytest.raises(ValueError, match="logits' device"):
+        sample_tokens(torch.from_numpy(logits).to("meta"), full)
