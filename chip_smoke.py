@@ -20,14 +20,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    B4 and its int8 variant also on one 4096-token sequence (bf16 q), with
    the number of split-K ranges the wrapper launched printed for each case;
    for agreement only, B4/B5 (and their quantized variants) at head dims
-   100 and 72 (pools padded to 16-byte rows) and B1-B3 at head dims 160
-   (padded to 256) and 256;
+   100 and 72 (pools padded to 16-byte rows) and, at small B and G 3,
+   288 and 512 (the column-chunked walk), and B1-B3 at head dims 160
+   (padded to 256), 256, 264 and 512 (column chunks of 256);
 4. trains GPT-2 125M at full width and depth (bf16 activations, f32
    masters, seeded random weights, one fixed [16, 1025] batch) through the
    port's ``run_gpt_bench``: the loss must stay finite and fall, and each
-   flash kernel must launch 12 layers x steps times; then, on one set of
-   weights and a [2, 1025] batch, the loss and every gradient through the
-   CUDA kernels against the plain backend;
+   flash kernel must launch 12 layers x steps times;
 5. serves 8 requests on GPT-2 125M at full width (bf16, seeded random
    weights) through ``LLMEngine``, whose decode loop runs at lag 1 from
    one captured CUDA graph per decode signature, and checks every stream
@@ -49,17 +48,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    weights and pool, the quantized kernels launching 12 layers x calls and
    the unquantized ones never, and the weights' and pool's device bytes
    about half of the bf16 engine's;
-8. prints the kernels' JSON line (a paged kernel's ``launches``: on the
-   device in its engine's counted pass, from the trace;
-   ``eager_launches``: its wrapper's count in that pass), then ``{"ok": true, "device": ...}`` last.
+8. repeats 4 to 7 for Llama-125M (``Family.full``: 12 layers,
+   d_model 768, 12 query heads on 4 kv heads, SwiGLU 2048, vocab 32000,
+   seq 1024; ``EngineConfig(model="llama")``, ``run_gpt_bench(
+   model="llama")``): B1-B3 with the kv heads repeated, B4/B5 and their
+   quantized variants at a query-group size of 3 over a pool of 4 kv
+   heads;
+9. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+   the two families' paths, each counted alone, ``launches_by_path``; a
+   paged kernel's on the device in its engine's counted pass, from the
+   trace; ``eager_launches``: its wrapper's count in that pass) and the
+   card's line;
+10. for each family, on its training phase's first weights and batch
+   ([16, 1025]), holds the loss and every gradient through the CUDA
+   kernels against the plain backend's (LOSS_TOL, GRAD_REL_TOL); then
+   ``{"ok": true, "device": ...}`` last.
 
 Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
 after one comparison per kernel (a first check of a new kernel);
 ``--profile`` adds B4's device time by split count and L2 state beside
-SDPA's, a profiled train step and profiled warm passes of the bf16 and
-the int8 engine's requests (device time by kernel, step times, B4's
-device time per call, host ops by CPU time).
+SDPA's, a profiled train step of each family and profiled warm
+passes of the bf16 and the int8 engines' requests (device time by kernel,
+step times, B4's device time per call, host ops by CPU time).
 """
 from __future__ import annotations
 
@@ -380,6 +391,7 @@ def kernels_phase(torch, quick: bool, kind=None) -> dict:
                 paged_prefill_attention(*args), name)
         del x, args
         unaligned_heads_phase(torch, dtype, kind)
+        above_256_phase(torch, dtype, kind)
     return rows
 
 
@@ -425,6 +437,50 @@ def unaligned_heads_phase(torch, dtype, kind) -> None:
                 pa.paged_prefill_attention_cuda(*args),
                 paged_prefill_attention(*args), name)
         del x, args
+
+
+def above_256_phase(torch, dtype, kind) -> None:
+    """Agreement only, at small B: B4 and B5 (their ``kind`` variants) at
+    head dims 288 and 512 (the column-chunked walk), q in ``dtype``, G 3
+    (12 query heads on 4 kv heads, as Llama-125M), pools at
+    ``pool_head_dim``, against the plain versions; B5 fresh and ragged,
+    with and without a window."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import (
+        paged_attention,
+        paged_prefill_attention,
+    )
+
+    name = str(dtype).split(".")[1]
+    suffix = f"_{kind}" if kind else ""
+    H, Hkv, bs, NB = 12, 4, 16, 48
+    for hd in (288, 512):
+        gen = torch.Generator(device="cuda").manual_seed(hd)
+        lengths = [700, 33]
+        k, v = make_pool(torch, gen, torch.float32, 1 + 2 * NB, bs, Hkv, hd)
+        k, v = (quantize_pool(k, v, kind) if kind
+                else (k.to(dtype), v.to(dtype)))
+        tables = make_tables(torch, gen, 2, NB, [-(-n // bs) for n in lengths])
+        q = torch.randn(2, H, hd, generator=gen, device="cuda").to(dtype)
+        pos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                           device="cuda")
+        args = (q, k, v, tables, pos)
+        compare(f"paged_decode{suffix} hd={hd} G=3", pa.paged_attention_cuda(
+            *args), paged_attention(*args), name)
+        for starts in ([0, 0], [300, 17]):
+            S = 64
+            tables = make_tables(torch, gen, 2, NB,
+                                 [-(-(s + S) // bs) for s in starts])
+            qp = torch.randn(2, S, H, hd, generator=gen,
+                             device="cuda").to(dtype)
+            pp = (torch.tensor(starts, dtype=torch.int32, device="cuda")[:, None]
+                  + torch.arange(S, dtype=torch.int32, device="cuda"))
+            args = (qp, k, v, tables, pp.contiguous())
+            for window in (None, 40):
+                compare(f"paged_prefill{suffix} hd={hd} G=3 starts={starts} "
+                        f"window={window}",
+                        pa.paged_prefill_attention_cuda(*args, window=window),
+                        paged_prefill_attention(*args, window=window), name)
 
 
 # ------------------------------------------------------- flash attention
@@ -533,12 +589,13 @@ def flash_phase(torch, quick: bool) -> dict:
 
 def wide_heads_phase(torch, dtype) -> None:
     """Agreement only: B1-B3 at head dims 160 (zero-padded to 256 by the
-    wrappers, at the true scale) and 256 (the CUDA-core tiles of 32
-    rows), causal and full, against the plain versions at the true D."""
+    wrappers, at the true scale), 256 (the CUDA-core tiles of 32 rows),
+    264 and 512 (those tiles in column chunks of 256), causal and full,
+    against the plain versions at the true D."""
     from ray_tpu_torch.ops import attention as at
 
     name = str(dtype).split(".")[1]
-    for D in (160, 256):
+    for D in (160, 256, 264, 512):
         gen = torch.Generator(device="cuda").manual_seed(D)
         q, k, v, do = (torch.randn(2, 4, 512, D, generator=gen,
                                    device="cuda").to(dtype) for _ in range(4))
@@ -578,28 +635,40 @@ def flash_bwd_registers() -> None:
 
 # ---------------------------------------------------------------- training
 
-def train_phase(torch) -> dict:
-    """GPT-2 125M train steps through the port's entry point; checks the
-    losses and that each flash kernel ran once per layer and step."""
+# the model families whose paths the script drives, in order, each at its
+# full width (``models/families.py`` ``Family.full``): GPT-2 125M, and
+# Llama-125M, the repo's own Llama benchmark shape
+# (docs/MICROBENCHMARKS.md:191-196: 12 query heads on 4 kv heads, SwiGLU
+# d_mlp 2048, vocab 32000, seq 1024; 12 layers of d_model 768), a
+# ``dataclasses.replace`` of ``LlamaConfig``
+FAMILIES = ("gpt", "llama")
+NAMES = {"gpt": "GPT-2 125M", "llama": "Llama-125M"}
+
+
+def train_phase(torch, model="gpt", card="") -> dict:
+    """Train steps of a family at full width (``Family.full``) through
+    the port's entry point; checks the losses and that each flash kernel
+    ran once per layer and step."""
     import math
 
     from ray_tpu_torch.benchmarks.gpt_mfu import run_gpt_bench
-    from ray_tpu_torch.models.gpt import GPTConfig
+    from ray_tpu_torch.models.families import family
     from ray_tpu_torch.ops import attention as at
 
-    n_layer = GPTConfig.gpt2_small().n_layer
+    cfg = family(model).full()
+    n_layer = cfg.n_layer
     at.reset_launches()
-    out = run_gpt_bench(config="gpt2_small", **TRAIN)
+    out = run_gpt_bench(model=model, config=cfg, **TRAIN)
     launches = dict(at.LAUNCHES)
     want = {name: n_layer * (TRAIN["warmup"] + TRAIN["steps"])
             for name in launches}
     losses = out["losses"]
-    log(f"train: GPT-2 {out['n_params']} params, batch {out['batch_size']} "
-        f"x {out['seq_len']}, {out['steps']} timed steps: step "
-        f"{out['step_ms']:.2f} ms, {out['tokens_per_s']:.1f} tokens/s, "
-        f"MFU {out['mfu']} (peak {out['peak_tflops']} TFLOP/s); losses "
-        f"{[round(x, 4) for x in losses]}; launches {launches} "
-        f"(expected {want})")
+    log(f"train: {NAMES[model]} {out['n_params']} params, batch "
+        f"{out['batch_size']} x {out['seq_len']}, {out['steps']} timed "
+        f"steps: step {out['step_ms']:.2f} ms, {out['tokens_per_s']:.1f} "
+        f"tokens/s, MFU {out['mfu']} (peak {out['peak_tflops']} TFLOP/s) on "
+        f"{card}; losses {[round(x, 4) for x in losses]}; launches "
+        f"{launches} (expected {want})")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -628,18 +697,22 @@ def loss_phase(torch, timer) -> float:
     return ms
 
 
-def train_backends_phase(torch) -> dict:
+def train_backends_phase(torch, model="gpt") -> dict:
     """Loss and every gradient of one step through the CUDA kernels against
-    the plain backend, same weights, a [2, 1025] batch."""
+    the plain backend, on the training phase's first step: its weights
+    (seed 0) and its batch (``TRAIN``'s size, tokens from seed 1)."""
     from ray_tpu_torch.benchmarks.gpt_mfu import bench_batch
-    from ray_tpu_torch.models.gpt import GPT, GPTConfig, gpt_init
+    from ray_tpu_torch.models.families import family
 
-    cfg = dataclasses.replace(GPTConfig.gpt2_small(), attention_backend="cuda")
-    models = {"cuda": gpt_init(cfg, seed=0, device="cuda", train=True)}
-    models["torch"] = GPT(dataclasses.replace(cfg, attention_backend="torch"),
-                          "cuda", train=True)
+    fam = family(model)
+    cfg = dataclasses.replace(fam.full(), attention_backend="cuda")
+    models = {"cuda": fam.init(cfg, seed=0, device="cuda", train=True)}
+    models["torch"] = fam.model(
+        dataclasses.replace(cfg, attention_backend="torch"), "cuda",
+        train=True)
     models["torch"].load_state_dict(models["cuda"].state_dict())
-    batch = bench_batch(cfg, 2, 1024, 5, "cuda")
+    batch = bench_batch(cfg, TRAIN["batch_size"], TRAIN["seq_len"], 1,
+                        "cuda")
     loss, grads = {}, {}
     for name, m in models.items():
         value = m.loss(batch)
@@ -652,7 +725,7 @@ def train_backends_phase(torch) -> dict:
         diff = (grads["cuda"][n] - want).float().norm()
         rel[n] = (diff / want.float().norm().clamp(min=1e-30)).item()
     worst = max(rel, key=rel.get)
-    log(f"train cuda vs torch backend: loss {loss['cuda']:.6f} vs "
+    log(f"train [{model}] cuda vs torch backend: loss {loss['cuda']:.6f} vs "
         f"{loss['torch']:.6f} (|diff| {dloss:.3e}, tol {LOSS_TOL}); worst "
         f"gradient rel L2 {rel[worst]:.3e} ({worst}; tol {GRAD_REL_TOL}; "
         f"median {statistics.median(rel.values()):.3e})")
@@ -663,9 +736,9 @@ def train_backends_phase(torch) -> dict:
     return {"loss_diff": dloss, "grad_rel": rel[worst]}
 
 
-def profile_train(torch) -> None:
-    """Two warm GPT-2 train steps under torch.profiler: device time by
-    kernel and the device's idle share."""
+def profile_train(torch, model="gpt") -> None:
+    """Two warm train steps of a family at full width under
+    torch.profiler: device time by kernel and the device's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.benchmarks.engine_profile import device_rows
@@ -674,29 +747,31 @@ def profile_train(torch) -> None:
         make_optimizer,
         train_step,
     )
-    from ray_tpu_torch.models.gpt import GPTConfig, gpt_init
+    from ray_tpu_torch.models.families import family
 
-    cfg = GPTConfig.gpt2_small()
-    model = gpt_init(cfg, seed=0, device="cuda", train=True)
-    opt = make_optimizer(model)
+    fam = family(model)
+    cfg = fam.full()
+    net = fam.init(cfg, seed=0, device="cuda", train=True)
+    opt = make_optimizer(net)
     batch = bench_batch(cfg, TRAIN["batch_size"], TRAIN["seq_len"], 1, "cuda")
     for _ in range(2):
-        train_step(model, opt, batch)
+        train_step(net, opt, batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(2):
-            train_step(model, opt, batch)
+            train_step(net, opt, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"profile train (2 steps): wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
+    log(f"profile train [{model}] (2 steps): wall {wall_ms:.1f} ms, device "
+        f"busy {busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
     for us, count, key in rows[:25]:
         log(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
             f"x{count:<6d} {key[:110]}")
+    del net, opt
 
 
 def device_us(torch, fn, before, skip, iters=20) -> dict:
@@ -777,7 +852,7 @@ def weight_bytes(model) -> int:
                for w in model.weights().values())
 
 
-def engine_phase(torch, quant=None) -> dict:
+def engine_phase(torch, quant=None, model="gpt") -> dict:
     """The engine workload (``quant``: None for bf16, or a quantization
     kind) on the lag-1 pipeline and its decode graphs. A first pass
     captures the graphs; a second, timed, must repeat its streams and
@@ -789,11 +864,12 @@ def engine_phase(torch, quant=None) -> dict:
     from ray_tpu_torch.benchmarks import engine_profile as ep
     from ray_tpu_torch.ops import paged_attention as pa
 
-    engine = ep.make_engine(quant)
+    engine = ep.make_engine(quant, model)
     cfg = engine.model_cfg
     assert engine.device.type == "cuda", engine.device
     assert engine.executor.quantization == quant
-    tag = f"engine[{quant or 'bf16'}]"
+    assert engine.executor.family == model
+    tag = f"engine[{model} {quant or 'bf16'}]"
     suffix = f"_{quant}" if quant else ""
     decode, prefill = "paged_decode" + suffix, "paged_prefill" + suffix
     prompts, params = ep.workload(cfg.vocab_size)
@@ -909,7 +985,7 @@ def graph_phase(torch, engine) -> None:
     tables = np.arange(1, 1 + B * nb, dtype=np.int32).reshape(B, nb)
     tokens = rng.integers(0, cfg.vocab_size, (B, 1024)).astype(np.int32)
     first = ex.sync_tokens(ex.prefill(tokens, lengths, tables))
-    tag = f"graph vs eager [{cfg.quantization or 'bf16'}]"
+    tag = f"graph vs eager [{ex.family} {cfg.quantization or 'bf16'}]"
     for sampled in (False, True):
         sample = {"seeds": np.arange(B, dtype=np.int64),
                   "temperature": np.full(B, 0.9 if sampled else 0.0,
@@ -971,8 +1047,9 @@ def profile_phase(torch, eng) -> None:
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = run["seconds"] * 1e3
-    quant = eng["engine"].executor.quantization
-    log(f"profile [{quant or 'bf16'}]: wall {wall_ms:.1f} ms, device busy "
+    ex = eng["engine"].executor
+    quant = f"{ex.family} {ex.quantization or 'bf16'}"
+    log(f"profile [{quant}]: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms "
         f"(idle share {1 - busy_ms / wall_ms:.3f}); steps "
         + ", ".join(f"{k} n={len(v)} mean {1e3 * statistics.mean(v):.2f} ms"
@@ -982,7 +1059,7 @@ def profile_phase(torch, eng) -> None:
             f"x{count:<6d} {key[:110]}")
     b4 = [(us, count) for us, count, key in rows if "paged_decode" in key]
     b4_ms, b4_calls = sum(r[0] for r in b4) / 1e3, sum(r[1] for r in b4)
-    log(f"profile [{quant or 'bf16'}]: B4 in the engine {b4_ms:.3f} ms over "
+    log(f"profile [{quant}]: B4 in the engine {b4_ms:.3f} ms over "
         f"{b4_calls} calls = {b4_ms / max(b4_calls, 1):.4f} ms a call "
         f"({100 * b4_ms / busy_ms:.1f}% of device busy)")
     # the host side: device launches per step, and host ops by self CPU
@@ -1002,17 +1079,19 @@ def profile_phase(torch, eng) -> None:
 
 def backends_phase(torch, engine) -> float:
     """Same weights and inputs through the CUDA kernels and through the
-    plain backend: one fresh prefill, then decode steps."""
+    plain backend: one fresh prefill, then decode steps, each fed the
+    plain backend's greedy token, so both take the same inputs even where
+    a near tie makes the two argmaxes differ (counted and printed)."""
     import numpy as np
 
-    from ray_tpu_torch.models.gpt import GPT
+    from ray_tpu_torch.models.families import kv_heads
     from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
 
     base = engine.executor.model
     models = {}
     for backend in ("cuda", "torch"):
-        m = GPT(dataclasses.replace(base.cfg, attention_backend=backend),
-                base.device)
+        m = type(base)(dataclasses.replace(base.cfg, attention_backend=backend),
+                       base.device)
         m.load_weights(base.weights())
         models[backend] = m
     cfg = base.cfg
@@ -1024,29 +1103,36 @@ def backends_phase(torch, engine) -> float:
     nb = (S + steps + bs - 1) // bs + 1
     tables = torch.arange(1, B * nb + 1, dtype=torch.int32,
                           device="cuda").reshape(B, nb)
-    logits = {}
-    for backend, m in models.items():
+    logits, fed = {}, []
+    for backend in ("torch", "cuda"):  # the plain backend picks the tokens
+        m = models[backend]
         cache = PagedKVCache(KVCacheConfig(
-            n_layer=cfg.n_layer, n_kv_head=cfg.n_head, head_dim=cfg.head_dim,
+            n_layer=cfg.n_layer,
+            n_kv_head=kv_heads(cfg),
+            head_dim=cfg.head_dim,
             num_blocks=B * nb + 1, block_size=bs, dtype=cfg.dtype,
             device="cuda", quantization=cfg.quantization))
         out, _, _ = m.prefill(cache.k, cache.v, tokens, lengths, tables)
         seq = [out]
-        nxt = out.argmax(-1).to(torch.int32)
         pos = lengths.clone()
-        for _ in range(steps):
-            out, _, _ = m.decode_step(cache.k, cache.v, nxt, pos, tables)
+        for i in range(steps):
+            if backend == "torch":
+                fed.append(out.argmax(-1).to(torch.int32))
+            out, _, _ = m.decode_step(cache.k, cache.v, fed[i], pos, tables)
             seq.append(out)
-            nxt = out.argmax(-1).to(torch.int32)
             pos = pos + 1
         logits[backend] = torch.stack(seq)
     if not torch.isfinite(logits["cuda"]).all():
         raise AssertionError("non-finite logits from the CUDA path")
     diff = (logits["cuda"] - logits["torch"]).abs().max().item()
     scale = logits["torch"].abs().max().item()
-    log(f"logits cuda vs torch backend [{cfg.quantization or 'bf16'}]: "
+    ties = int((logits["cuda"].argmax(-1) != logits["torch"].argmax(-1))
+               .sum().item())
+    log(f"logits cuda vs torch backend [{engine.executor.family} "
+        f"{cfg.quantization or 'bf16'}]: "
         f"max_abs_diff {diff:.3e} (tol {LOGIT_TOL}; max |logit| "
-        f"{scale:.3f})")
+        f"{scale:.3f}); argmax differs at {ties} of "
+        f"{B * (steps + 1)} (row, step)")
     if not diff <= LOGIT_TOL:
         raise AssertionError(f"backends disagree: {diff}")
     return diff
@@ -1095,36 +1181,44 @@ def main() -> int:
     if args.quick:
         log(card)
         return 0
-    train = train_phase(torch)
-    loss_phase(torch, Timer(torch))
-    train_backends_phase(torch)
-    # the paged kernels' launches on the device and by their wrappers,
-    # each from the counted pass of the engine whose path runs it
-    eng = engine_phase(torch)
-    launches = {n: eng["launches"][n] for n in ("paged_decode", "paged_prefill")}
-    eager = {n: eng["eager"][n] for n in launches}
-    base_bytes = eng["bytes"]
-    backends_phase(torch, eng["engine"])
-    if args.profile:
-        decode_sweep(torch)
-        profile_train(torch)
-        profile_phase(torch, eng)
-    for kind in QUANT_KINDS:
-        del eng  # one engine's weights and pool at a time
-        torch.cuda.empty_cache()
-        eng = engine_phase(torch, kind)
-        for base in ("paged_decode", "paged_prefill"):
-            launches[f"{base}_{kind}"] = eng["launches"][f"{base}_{kind}"]
-            eager[f"{base}_{kind}"] = eng["eager"][f"{base}_{kind}"]
-        ratio = {n: eng["bytes"][n] / base_bytes[n] for n in base_bytes}
-        log(f"engine[{kind}] device bytes / bf16 engine's: "
-            f"{ {n: round(r, 4) for n, r in ratio.items()} } "
-            f"(max {BYTES_RATIO_MAX})")
-        if max(ratio.values()) > BYTES_RATIO_MAX:
-            raise AssertionError(f"{kind} engine bytes not halved: {ratio}")
-        backends_phase(torch, eng["engine"])
-        if args.profile and kind == "int8":
-            profile_phase(torch, eng)
+    # each family's path: its training phase, then its engine phases; the
+    # launch counts of each path are reset just before it and read just
+    # after it
+    train = {}
+    for model in FAMILIES:
+        train[model] = train_phase(torch, model, card)
+        if model == "gpt":
+            loss_phase(torch, Timer(torch))
+        if args.profile:
+            profile_train(torch, model)
+    launches = {model: {} for model in FAMILIES}
+    eager = {model: {} for model in FAMILIES}
+    for model in FAMILIES:
+        base_bytes = None
+        for kind in (None, *QUANT_KINDS):
+            torch.cuda.empty_cache()  # one engine's weights and pool at a time
+            eng = engine_phase(torch, kind, model)
+            suffix = f"_{kind}" if kind else ""
+            for base in ("paged_decode", "paged_prefill"):
+                launches[model][base + suffix] = eng["launches"][base + suffix]
+                eager[model][base + suffix] = eng["eager"][base + suffix]
+            if kind is None:
+                base_bytes = eng["bytes"]
+            else:
+                ratio = {n: eng["bytes"][n] / base_bytes[n]
+                         for n in base_bytes}
+                log(f"engine[{model} {kind}] device bytes / bf16 engine's: "
+                    f"{ {n: round(r, 4) for n, r in ratio.items()} } "
+                    f"(max {BYTES_RATIO_MAX})")
+                if max(ratio.values()) > BYTES_RATIO_MAX:
+                    raise AssertionError(
+                        f"{model} {kind} engine bytes not halved: {ratio}")
+            backends_phase(torch, eng["engine"])
+            if args.profile and kind in (None, "int8"):
+                if model == "gpt" and kind is None:
+                    decode_sweep(torch)
+                profile_phase(torch, eng)
+            del eng
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")
@@ -1138,7 +1232,9 @@ def main() -> int:
             "source": f"ray_tpu_torch/csrc/{base}.cu",
             "replaces": "ray_tpu/ops/paged_attention.py:"
                         + ("104" if base == "paged_decode" else "322"),
-            "launches": launches[name], "eager_launches": eager[name],
+            "launches": sum(launches[m][name] for m in FAMILIES),
+            "launches_by_path": {m: launches[m][name] for m in FAMILIES},
+            "eager_launches": {m: eager[m][name] for m in FAMILIES},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1161,7 +1257,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"ray_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": train["launches"][name],
+            "launches": sum(train[m]["launches"][name] for m in FAMILIES),
+            "launches_by_path": {m: train[m]["launches"][name]
+                                 for m in FAMILIES},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1172,6 +1270,9 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
+    # last, so that a disagreement leaves every other phase's reading
+    for model in FAMILIES:
+        train_backends_phase(torch, model)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,10 +8,11 @@ found at the same path:
 - ``ops/``        — layers, flash attention, the fused lm-head loss, paged
   KV ops, sampling and the attention dispatchers over the hand-written
   Hopper kernels (``csrc/*.cu``, built at first use by ``_build.py``)
-- ``models/gpt.py`` — the GPT-2 family's training and KV-cached serving
-  paths
-- ``benchmarks/gpt_mfu.py`` — GPT train steps: tokens/s and MFU
-- ``convert.py``  — the JAX parameter tree into the port's weights
+- ``models/gpt.py``, ``models/llama.py`` — the GPT-2 and Llama families'
+  training and KV-cached serving paths
+- ``benchmarks/gpt_mfu.py`` — train steps of either family: tokens/s and
+  MFU
+- ``convert.py``  — the JAX parameter trees into the port's weights
 - ``serve/llm/``  — paged KV cache, single-device executor, the
   continuous-batching ``LLMEngine``
 

@@ -1,7 +1,8 @@
 """Time and profile the port's serving engine on one card: the engine
-workload of ``chip_smoke.py`` (GPT-2 125M at full width and depth, seeded
-random weights, 8 requests of 30-900 prompt tokens, 32 new tokens each,
-one of them sampled).
+workload of ``chip_smoke.py`` (a model family at full width and depth,
+GPT-2 125M or, with ``--model llama``, Llama-125M; seeded random weights,
+8 requests of 30-900 prompt tokens, 32 new tokens each, one of them
+sampled).
 
 For each engine (bf16, and ``--quant int8`` / ``fp8``) it prints one JSON
 line with
@@ -66,11 +67,14 @@ def workload(vocab_size: int, new_tokens: int = NEW_TOKENS):
     return prompts, params
 
 
-def make_engine(quant=None):
-    from ray_tpu_torch.models.gpt import GPTConfig
+def make_engine(quant=None, model="gpt"):
+    """The engine of family ``model`` at full width (``Family.full``):
+    GPT-2 125M, or Llama-125M."""
+    from ray_tpu_torch.models.families import family
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
-    return LLMEngine(EngineConfig(model_config=GPTConfig.gpt2_small(),
+    cfg = family(model).full()
+    return LLMEngine(EngineConfig(model=model, model_config=cfg,
                                   quantization=quant, **ENGINE),
                      auto_step=False)
 
@@ -232,6 +236,8 @@ def main() -> int:
     parser.add_argument("--quant", nargs="*", default=[],
                         help="quantized engines to measure after bf16")
     parser.add_argument("--label", default="", help="tag of the JSON lines")
+    parser.add_argument("--model", default="gpt", choices=("gpt", "llama"),
+                        help="model family")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -243,8 +249,8 @@ def main() -> int:
     import ray_tpu_torch
 
     for quant in [None, *args.quant]:
-        out = measure(torch, make_engine(quant))
-        out.update(label=args.label, engine=quant or "bf16",
+        out = measure(torch, make_engine(quant, args.model))
+        out.update(label=args.label, engine=quant or "bf16", model=args.model,
                    package=os.path.dirname(ray_tpu_torch.__file__),
                    card=torch.cuda.get_device_name(0))
         print("engine profile: " + json.dumps(out), flush=True)

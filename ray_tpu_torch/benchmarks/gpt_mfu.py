@@ -1,6 +1,7 @@
-"""GPT train-step benchmark of the port (counterpart of
+"""Train-step benchmark of the port (counterpart of
 ``ray_tpu/benchmarks/gpt_mfu.py``): tokens per second and MFU of a
-next-token training step on one card.
+next-token training step on one card, for a model family of the engine's
+registry (``model``: "gpt", or "llama").
 
 The step is ``loss = model.loss(batch)``, ``loss.backward()``,
 ``opt.step()``, ``opt.zero_grad(set_to_none=True)`` on f32 master
@@ -15,6 +16,9 @@ MFU: 6 * n_params * tokens/s over the card's dense bf16 peak (attention
 flops excluded, as in the JAX bench). The peak table holds the port's own
 cards; on the CPU MFU is not reported.
 
+Full width: each family's ``full()`` (``models/families.py``), GPT-2 125M
+and Llama-125M.
+
 Run: ``python -m ray_tpu_torch.benchmarks.gpt_mfu`` prints one JSON line
 (GPT-2 125M, batch 16 x 1024, on ``cuda:0``).
 """
@@ -27,7 +31,7 @@ import time
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.gpt import GPTConfig, gpt_init, gpt_num_params
+from ray_tpu_torch.models.families import family
 
 # dense bf16 tensor-core peak by device-name substring (NVIDIA data sheets,
 # SXM parts at their full power limit)
@@ -48,7 +52,7 @@ def card_peak_tflops(device: torch.device) -> float | None:
     return None
 
 
-def bench_batch(cfg: GPTConfig, batch_size: int, seq_len: int, seed: int,
+def bench_batch(cfg, batch_size: int, seq_len: int, seed: int,
                 device) -> dict:
     """The bench's fixed batch: [batch_size, seq_len + 1] random token ids
     from ``seed`` on ``device``."""
@@ -76,33 +80,44 @@ def run_gpt_bench(
     seq_len: int = 1024,
     steps: int = 8,
     warmup: int = 2,
-    config="gpt2_small",
+    config=None,
     remat: bool = False,
     device=None,
+    model: str = "gpt",
 ) -> dict:
     """Run ``warmup`` then ``steps`` timed train steps on one batch (weights
     from seed 0, tokens from seed 1); returns the losses of every step,
-    step time, tokens/s and (on a card) MFU. ``config`` names a
-    ``GPTConfig`` constructor (``gpt2_small``, ``tiny``) or is a
-    ``GPTConfig``; a ``seq_len`` past its table grows the positional table.
-    Runs on ``cuda:0`` unless ``device`` says otherwise."""
+    step time, tokens/s and (on a card) MFU. ``model`` is the family;
+    ``config`` names a constructor of its config class (``gpt2_small``,
+    ``tiny``) or is a config, None its full width (``Family.full``); a ``seq_len`` past its table grows the positional
+    (or rotary) table. Runs on ``cuda:0`` unless ``device`` says
+    otherwise."""
     dev = resolve_device(device)
-    cfg = getattr(GPTConfig, config)() if isinstance(config, str) else config
+    fam = family(model)
+    if config is None:
+        cfg = fam.full()
+    elif isinstance(config, str):
+        cfg = getattr(fam.config, config)()
+    else:
+        cfg = config
+    if not isinstance(cfg, fam.config):
+        raise TypeError(f"model={model!r} takes a {fam.config.__name__}, "
+                        f"got {type(cfg).__name__}")
     cfg = dataclasses.replace(cfg, remat=remat or cfg.remat,
                               max_seq_len=max(seq_len, cfg.max_seq_len))
-    n_params = gpt_num_params(cfg)
-    model = gpt_init(cfg, seed=0, device=dev, train=True)
-    opt = make_optimizer(model)
+    net = fam.init(cfg, seed=0, device=dev, train=True)
+    n_params = sum(p.numel() for p in net.parameters())
+    opt = make_optimizer(net)
     batch = bench_batch(cfg, batch_size, seq_len, 1, dev)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    losses = [train_step(model, opt, batch) for _ in range(warmup)]
+    losses = [train_step(net, opt, batch) for _ in range(warmup)]
     sync()
     t0 = time.perf_counter()
-    losses += [train_step(model, opt, batch) for _ in range(steps)]
+    losses += [train_step(net, opt, batch) for _ in range(steps)]
     sync()
     seconds = time.perf_counter() - t0
     tps = batch_size * seq_len * steps / seconds if steps else 0.0
@@ -111,6 +126,7 @@ def run_gpt_bench(
     return {
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
+        "model": model,
         "n_params": n_params,
         "batch_size": batch_size,
         "seq_len": seq_len,

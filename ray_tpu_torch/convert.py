@@ -1,6 +1,6 @@
-"""The JAX package's GPT parameter tree <-> the port's weights.
+"""The JAX package's GPT and Llama parameter trees <-> the port's weights.
 
-The JAX tree (``gpt_init``'s output as numpy, e.g.
+The JAX tree (``gpt_init``'s or ``llama_init``'s output as numpy, e.g.
 ``jax.tree.map(np.asarray, params)``) stacks every block weight along a
 leading ``[n_layer, ...]`` axis; the port keeps one ``Block`` module per
 layer, so ``blocks.<i>.<name>`` is slice i of ``blocks[name]``. Shapes and
@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.gpt import _TOP, Block, GPTConfig
+from ray_tpu_torch.models import gpt, llama
 from ray_tpu_torch.ops.quantization import QuantizedTensor
 
 # numpy dtype name of each quantized storage dtype the JAX package writes
@@ -47,34 +47,54 @@ def _leaf(x, layer: int | None = None):
     return torch.from_numpy(arr if layer is None else arr[layer].copy())
 
 
-def gpt_params_from_numpy(tree: dict, cfg: GPTConfig) -> dict:
-    """JAX tree of numpy arrays -> the port's state dict (f32 CPU tensors,
-    or QuantizedTensors for quantized leaves; ``GPT.load_weights`` copies
-    them to each weight's dtype and device)."""
-    out = {name: _leaf(tree[name]) for name in _TOP}
+def _from_numpy(tree: dict, n_layer: int, top, block_names) -> dict:
+    out = {name: _leaf(tree[name]) for name in top}
     blocks = tree["blocks"]
-    if set(blocks) != set(Block.SHAPES):
+    if set(blocks) != set(block_names):
         raise ValueError(f"unexpected block weights {sorted(blocks)}")
     for name, arr in blocks.items():
-        if arr.shape[0] != cfg.n_layer:
+        if arr.shape[0] != n_layer:
             raise ValueError(
                 f"blocks.{name} stacks {arr.shape[0]} layers, config has "
-                f"{cfg.n_layer}"
+                f"{n_layer}"
             )
-        for i in range(cfg.n_layer):
+        for i in range(n_layer):
             out[f"blocks.{i}.{name}"] = _leaf(arr, i)
     return out
 
 
-def gpt_params_to_numpy(state: dict, cfg: GPTConfig) -> dict:
-    """The port's state dict -> the JAX tree layout, as f32 numpy."""
+def _to_numpy(state: dict, n_layer: int, top, block_names) -> dict:
     def np32(t):
         return t.detach().to("cpu", torch.float32).numpy()
 
-    tree = {name: np32(state[name]) for name in _TOP}
+    tree = {name: np32(state[name]) for name in top}
     tree["blocks"] = {
         name: np.stack([np32(state[f"blocks.{i}.{name}"])
-                        for i in range(cfg.n_layer)])
-        for name in Block.SHAPES
+                        for i in range(n_layer)])
+        for name in block_names
     }
     return tree
+
+
+def gpt_params_from_numpy(tree: dict, cfg: gpt.GPTConfig) -> dict:
+    """JAX GPT tree of numpy arrays -> the port's state dict (f32 CPU
+    tensors, or QuantizedTensors for quantized leaves; ``GPT.load_weights``
+    copies them to each weight's dtype and device)."""
+    return _from_numpy(tree, cfg.n_layer, gpt._TOP, gpt.Block.SHAPES)
+
+
+def gpt_params_to_numpy(state: dict, cfg: gpt.GPTConfig) -> dict:
+    """The port's GPT state dict -> the JAX tree layout, as f32 numpy."""
+    return _to_numpy(state, cfg.n_layer, gpt._TOP, gpt.Block.SHAPES)
+
+
+def llama_params_from_numpy(tree: dict, cfg: llama.LlamaConfig) -> dict:
+    """JAX Llama tree (dense SwiGLU) -> the port's state dict, as
+    ``gpt_params_from_numpy`` (quantized leaves byte for byte)."""
+    return _from_numpy(tree, cfg.n_layer, llama._TOP,
+                       llama.LlamaBlock.SHAPES)
+
+
+def llama_params_to_numpy(state: dict, cfg: llama.LlamaConfig) -> dict:
+    """The port's Llama state dict -> the JAX tree layout, as f32 numpy."""
+    return _to_numpy(state, cfg.n_layer, llama._TOP, llama.LlamaBlock.SHAPES)

@@ -63,7 +63,12 @@
 // bf16 inputs too, 32 rows a tile (four [32][257] f32 tiles and the p and
 // ds tiles fit in shared memory; 64 rows would not), with the TPU's bf16
 // rounding of s - lse, exp2 and ds: at D 256 the tensor-core kernels'
-// accumulators would not fit in a thread's 255 registers.
+// accumulators would not fit in a thread's 255 registers. Heads above 256
+// run those tiles in column chunks of 256 (flash_common.cuh kWideCols):
+// grid z is the chunk; per tile pair, s = Q_s K^T and dP = dO V^T stream
+// over the whole head in slices of 256 columns through the four tiles
+// (wide_scores), and the chunk's own columns of Q_s and dO (B2) or K (B3)
+// are staged again for its products.
 #include "flash_common.cuh"
 
 #include <type_traits>
@@ -75,23 +80,17 @@ using namespace flash;
 // ---- f32 (and bf16 at head dim 256): the CUDA-core tiles of
 // flash_common.cuh
 
-// p and ds of one [BM q][BM kv] tile pair into Ps / dSs (either may be
-// null), from the staged Qs, Ks, dOs, Vs and the rows' lse (Ls) and delta
-// (Ds).
+// p and ds of one [BM q][BM kv] tile pair into Ps / dSs (Ps may be null),
+// from its scores s and dP and the rows' lse (Ls) and delta (Ds).
 template <typename T, int D>
-__device__ __forceinline__ void probs_and_ds(
-    const float* Qs, const float* Ks, const float* dOs, const float* Vs,
+__device__ __forceinline__ void finish_probs(
+    const float (&s)[tile_rows<D>() / 8][tile_rows<D>() / 16],
+    const float (&dp)[tile_rows<D>() / 8][tile_rows<D>() / 16],
     const float* Ls, const float* Ds, float* Ps, float* dSs, int q0, int k0,
     int S, int causal) {
-  constexpr int LD = D + 1;
   constexpr int BM = tile_rows<D>();
   constexpr int LDP = BM + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[BM / 8][BM / 16], dp[BM / 8][BM / 16];
-  zero<BM, BM>(s);
-  zero<BM, BM>(dp);
-  tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
-  tile_mma<BM, BM, D, false, false>(dp, dOs, LD, Vs, LD);
   const bool masked =
       (causal && q0 == k0) || q0 + BM > S || k0 + BM > S;
 #pragma unroll
@@ -108,6 +107,51 @@ __device__ __forceinline__ void probs_and_ds(
       dSs[r * LDP + c] = round_t<T>(p * (dp[i][j] - delta) * kLn2);
     }
   }
+}
+
+// p and ds of one tile pair from the staged Qs, Ks, dOs and Vs (the whole
+// head: D columns).
+template <typename T, int D>
+__device__ __forceinline__ void probs_and_ds(
+    const float* Qs, const float* Ks, const float* dOs, const float* Vs,
+    const float* Ls, const float* Ds, float* Ps, float* dSs, int q0, int k0,
+    int S, int causal) {
+  constexpr int LD = D + 1;
+  constexpr int BM = tile_rows<D>();
+  float s[BM / 8][BM / 16], dp[BM / 8][BM / 16];
+  zero<BM, BM>(s);
+  zero<BM, BM>(dp);
+  tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
+  tile_mma<BM, BM, D, false, false>(dp, dOs, LD, Vs, LD);
+  finish_probs<T, D>(s, dp, Ls, Ds, Ps, dSs, q0, k0, S, causal);
+}
+
+// p and ds of one tile pair of a head wider than D: s = Q_s K^T and
+// dP = dO V^T summed over slices of D columns of the whole head (Dfull),
+// each staged through Qs, Ks, dOs and Vs. Starts and ends on a barrier;
+// the tiles hold the last slice afterwards.
+template <typename T, int D>
+__device__ __forceinline__ void wide_probs_and_ds(
+    float* Qs, float* Ks, float* dOs, float* Vs, const T* q, const T* k,
+    const T* v, const T* dout, const float* Ls, const float* Ds, float* Ps,
+    float* dSs, int q0, int k0, int S, int Dfull, float c, int causal) {
+  constexpr int LD = D + 1;
+  constexpr int BM = tile_rows<D>();
+  float s[BM / 8][BM / 16], dp[BM / 8][BM / 16];
+  zero<BM, BM>(s);
+  zero<BM, BM>(dp);
+  for (int c0 = 0; c0 < Dfull; c0 += D) {
+    __syncthreads();  // the tiles' last readers are done
+    load_tile<T, D, true, BM>(Qs, q, q0, S, c, Dfull, c0);
+    load_tile<T, D, false, BM>(Ks, k, k0, S, 0.f, Dfull, c0);
+    load_tile<T, D, false, BM>(dOs, dout, q0, S, 0.f, Dfull, c0);
+    load_tile<T, D, false, BM>(Vs, v, k0, S, 0.f, Dfull, c0);
+    __syncthreads();
+    tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
+    tile_mma<BM, BM, D, false, false>(dp, dOs, LD, Vs, LD);
+  }
+  finish_probs<T, D>(s, dp, Ls, Ds, Ps, dSs, q0, k0, S, causal);
+  __syncthreads();
 }
 
 template <int D>
@@ -130,8 +174,8 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int S, float qscale,
-                         int causal) {
+                         T* __restrict__ dv, int S, int Dfull,
+                         float qscale, int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LD = D + 1;
   constexpr int BM = tile_rows<D>();
@@ -147,26 +191,40 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (S + BM - 1) / BM;
   const int kt = blockIdx.x;  // causal: tile 0 sees the most q tiles
   const int k0 = kt * BM;
-  const size_t base = (size_t)blockIdx.y * S * D;
+  const size_t base = (size_t)blockIdx.y * S * Dfull;
   const float* lse_b = lse + (size_t)blockIdx.y * S;
   const float* delta_b = delta + (size_t)blockIdx.y * S;
   const float c = round_t<T>(qscale);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const bool wide = Dfull > D;
+  const int col0 = blockIdx.z * D;  // this chunk's output columns
 
-  load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
-  load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
+  if (!wide) {
+    load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
+    load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
+  }
   float acc_dk[BM / 8][D / 16], acc_dv[BM / 8][D / 16];
   zero<BM, D>(acc_dk);
   zero<BM, D>(acc_dv);
 
   for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
     const int q0 = qt * BM;
-    load_tile<T, D, true, BM>(Qs, q + base, q0, S, c);
-    load_tile<T, D, false, BM>(dOs, dout + base, q0, S, 0.f);
     load_rows<BM>(Ls, lse_b, q0, S);
     load_rows<BM>(Ds, delta_b, q0, S);
-    __syncthreads();
-    probs_and_ds<T, D>(Qs, Ks, dOs, Vs, Ls, Ds, Ps, dSs, q0, k0, S, causal);
+    if (!wide) {
+      load_tile<T, D, true, BM>(Qs, q + base, q0, S, c);
+      load_tile<T, D, false, BM>(dOs, dout + base, q0, S, 0.f);
+      __syncthreads();
+      probs_and_ds<T, D>(Qs, Ks, dOs, Vs, Ls, Ds, Ps, dSs, q0, k0, S,
+                         causal);
+    } else {
+      wide_probs_and_ds<T, D>(Qs, Ks, dOs, Vs, q + base, k + base, v + base,
+                              dout + base, Ls, Ds, Ps, dSs, q0, k0, S, Dfull,
+                              c, causal);
+      // this chunk's columns of Q_s and dO for the two products
+      load_tile<T, D, true, BM>(Qs, q + base, q0, S, c, Dfull, col0);
+      load_tile<T, D, false, BM>(dOs, dout + base, q0, S, 0.f, Dfull, col0);
+    }
     __syncthreads();
     // rows kv, columns d, summed over the tile's q rows
     tile_mma<BM, D, BM, true, true>(acc_dv, Ps, LDP, dOs, LD);
@@ -180,7 +238,9 @@ __global__ void __launch_bounds__(kThreads)
     if (kpos >= S) continue;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) {
-      const size_t at = base + (size_t)kpos * D + tx + 16 * j;
+      const int col = col0 + tx + 16 * j;
+      if (col >= Dfull) continue;
+      const size_t at = base + (size_t)kpos * Dfull + col;
       dk[at] = from_f32<T>(acc_dk[i][j]);
       dv[at] = from_f32<T>(acc_dv[i][j]);
     }
@@ -193,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int S, float qscale, int causal) {
+                        int S, int Dfull, float qscale, int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LD = D + 1;
   constexpr int BM = tile_rows<D>();
@@ -208,12 +268,16 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (S + BM - 1) / BM;
   const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
   const int q0 = qt * BM;
-  const size_t base = (size_t)blockIdx.y * S * D;
+  const size_t base = (size_t)blockIdx.y * S * Dfull;
   const float c = round_t<T>(qscale);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const bool wide = Dfull > D;
+  const int col0 = blockIdx.z * D;  // this chunk's output columns
 
-  load_tile<T, D, true, BM>(Qs, q + base, q0, S, c);
-  load_tile<T, D, false, BM>(dOs, dout + base, q0, S, 0.f);
+  if (!wide) {
+    load_tile<T, D, true, BM>(Qs, q + base, q0, S, c);
+    load_tile<T, D, false, BM>(dOs, dout + base, q0, S, 0.f);
+  }
   load_rows<BM>(Ls, lse + (size_t)blockIdx.y * S, q0, S);
   load_rows<BM>(Ds, delta + (size_t)blockIdx.y * S, q0, S);
   float acc[BM / 8][D / 16];
@@ -222,11 +286,19 @@ __global__ void __launch_bounds__(kThreads)
   const int kt_end = causal ? qt : n_tiles - 1;
   for (int kt = 0; kt <= kt_end; ++kt) {
     const int k0 = kt * BM;
-    load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
-    load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
-    __syncthreads();
-    probs_and_ds<T, D>(Qs, Ks, dOs, Vs, Ls, Ds, nullptr, dSs, q0, k0, S,
-                       causal);
+    if (!wide) {
+      load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
+      load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
+      __syncthreads();
+      probs_and_ds<T, D>(Qs, Ks, dOs, Vs, Ls, Ds, nullptr, dSs, q0, k0, S,
+                         causal);
+    } else {
+      wide_probs_and_ds<T, D>(Qs, Ks, dOs, Vs, q + base, k + base, v + base,
+                              dout + base, Ls, Ds, nullptr, dSs, q0, k0, S,
+                              Dfull, c, causal);
+      // this chunk's columns of K for dS K
+      load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f, Dfull, col0);
+    }
     __syncthreads();
     // rows q, columns d, summed over the tile's keys
     tile_mma<BM, D, BM, false, true>(acc, dSs, LDP, Ks, LD);
@@ -238,9 +310,12 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + ty + 8 * i;
     if (qpos >= S) continue;
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      dq[base + (size_t)qpos * D + tx + 16 * j] =
-          from_f32<T>(round_t<T>(acc[i][j]) * c);
+    for (int j = 0; j < D / 16; ++j) {
+      const int col = col0 + tx + 16 * j;
+      if (col < Dfull)
+        dq[base + (size_t)qpos * Dfull + col] =
+            from_f32<T>(round_t<T>(acc[i][j]) * c);
+    }
   }
 }
 
@@ -528,6 +603,7 @@ struct Args {
   const float *lse, *delta;
   void *dq, *dk, *dv;
   int BH, S;
+  int Dfull;  // the head dim (above 256: column chunks of kWideCols)
   float qscale;
   int causal;
   cudaStream_t stream;
@@ -562,18 +638,27 @@ int launch(const Args& a) {
   constexpr int rows = kMma ? kTile : tile_rows<D>();
   const int n_tiles = (a.S + rows - 1) / rows;
   // tensor-core grid: tile order on y, so the longest walks of every
-  // (b, h) start first
-  const dim3 grid = kMma ? dim3(a.BH, n_tiles) : dim3(n_tiles, a.BH);
+  // (b, h) start first; CUDA-core grid: column chunks on z
+  const dim3 grid = kMma ? dim3(a.BH, n_tiles)
+                         : dim3(n_tiles, a.BH, (a.Dfull + D - 1) / D);
   const T* in[4] = {static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                     static_cast<const T*>(a.v), static_cast<const T*>(a.dout)};
-  if constexpr (DKV)
+  if constexpr (kMma && DKV)
     kernel<<<grid, kThreads, bytes, a.stream>>>(
         in[0], in[1], in[2], in[3], a.lse, a.delta, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.S, a.qscale, a.causal);
-  else
+  else if constexpr (kMma)
     kernel<<<grid, kThreads, bytes, a.stream>>>(
         in[0], in[1], in[2], in[3], a.lse, a.delta, static_cast<T*>(a.dq),
         a.S, a.qscale, a.causal);
+  else if constexpr (DKV)
+    kernel<<<grid, kThreads, bytes, a.stream>>>(
+        in[0], in[1], in[2], in[3], a.lse, a.delta, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.S, a.Dfull, a.qscale, a.causal);
+  else
+    kernel<<<grid, kThreads, bytes, a.stream>>>(
+        in[0], in[1], in[2], in[3], a.lse, a.delta, static_cast<T*>(a.dq),
+        a.S, a.Dfull, a.qscale, a.causal);
   return (int)cudaGetLastError();
 }
 
@@ -584,9 +669,15 @@ struct Inst {
 };
 
 // fn(Inst<T, D>{}) for dtype (0 = float32, 1 = bfloat16) and head dim D
-// in {32, 64, 128, 256}; any other pair is cudaErrorInvalidValue.
+// in {32, 64, 128, 256}, or any D above 256 as Inst<T, kWideCols> (its
+// column chunks); any other pair is cudaErrorInvalidValue.
 template <typename Fn>
 int dispatch(int D, int dtype, Fn fn) {
+  if (D > kWideCols) {
+    if ((D + kWideCols - 1) / kWideCols > 65535)
+      return (int)cudaErrorInvalidValue;
+    D = kWideCols;
+  }
 #define FLASH_BWD_CASE(T, DIM) \
   if (D == DIM) return fn(Inst<T, DIM>{});
   if (dtype == 0) {
@@ -606,6 +697,7 @@ int dispatch(int D, int dtype, Fn fn) {
 
 template <bool DKV>
 int run(const Args& a, int D, int dtype) {
+  // a.Dfull is D: dispatch maps heads above 256 to the chunked tiles
   if (a.BH <= 0 || a.BH > 65535 || a.S <= 0) return (int)cudaErrorInvalidValue;
   return dispatch(D, dtype, [&](auto inst) {
     using I = decltype(inst);
@@ -622,8 +714,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int S, int D, float qscale, int causal,
                              int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
-         static_cast<const float*>(delta), nullptr, dk, dv, BH, S, qscale,
-         causal, static_cast<cudaStream_t>(stream)};
+         static_cast<const float*>(delta), nullptr, dk, dv, BH, S, D,
+         qscale, causal, static_cast<cudaStream_t>(stream)};
   return run<true>(a, D, dtype);
 }
 
@@ -634,7 +726,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             float qscale, int causal, int dtype,
                             void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
-         static_cast<const float*>(delta), dq, nullptr, nullptr, BH, S,
+         static_cast<const float*>(delta), dq, nullptr, nullptr, BH, S, D,
          qscale, causal, static_cast<cudaStream_t>(stream)};
   return run<false>(a, D, dtype);
 }

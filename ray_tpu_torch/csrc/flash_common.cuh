@@ -22,8 +22,9 @@
 // and rounded to T; scores, max, sums and accumulators are f32; with bf16
 // inputs (s - m) and exp2 are rounded to bf16, and p and ds are rounded to
 // T before their products. f32 inputs stay f32 throughout. The kernels run
-// f32 inputs at every head dim, and bf16 inputs at head dim 256, wider than
-// the tensor-core tiles take.
+// f32 inputs at every head dim, and bf16 inputs at head dim 256 and above,
+// wider than the tensor-core tiles take (above 256 in column chunks, see
+// kWideCols).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +37,14 @@ namespace flash {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 64;           // query rows, and keys, per tile
+// Heads wider than 256 run the CUDA-core tiles of D = kWideCols in column
+// chunks: chunk c (grid z) accumulates and writes output columns
+// [kWideCols c, kWideCols c + kWideCols); its scores (and, in the
+// backward, dP) stream over the full head dim in slices of kWideCols
+// through the same tiles. Every chunk computes the same scores in the
+// same order, so m, l and the LSE agree across chunks; chunk 0 writes the
+// LSE. Each extra chunk recomputes the scores once more.
+constexpr int kWideCols = 256;
 
 // Rows (and keys) of a CUDA-core tile at head dim D.
 template <int D>
@@ -73,16 +82,19 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Stage rows row0 .. row0 + BM - 1 of a [S, D] slice into dst [BM][D + 1]
-// as f32; rows past S are zero. SCALED multiplies by c and rounds to T (the
-// pre-scaled q of the TPU kernels).
+// Stage rows row0 .. row0 + BM - 1 of an [S, ld] slice, columns col0 ..
+// col0 + D - 1, into dst [BM][D + 1] as f32; rows past S and columns past
+// ld are zero. SCALED multiplies by c and rounds to T (the pre-scaled q of
+// the TPU kernels). ld is the full head dim: D itself, or wider for the
+// column-chunked walk of heads above 256 (see kWideCols).
 template <typename T, int D, bool SCALED, int BM>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst,
                                           const T* __restrict__ src, int row0,
-                                          int S, float c) {
+                                          int S, float c, int ld = D,
+                                          int col0 = 0) {
   for (int e = threadIdx.x; e < BM * D; e += kThreads) {
-    const int r = e / D, d = e % D, row = row0 + r;
-    float x = row < S ? to_f32(src[(size_t)row * D + d]) : 0.f;
+    const int r = e / D, d = e % D, row = row0 + r, col = col0 + d;
+    float x = row < S && col < ld ? to_f32(src[(size_t)row * ld + col]) : 0.f;
     if (SCALED) x = round_t<T>(x * c);
     dst[r * (D + 1) + d] = x;
   }

@@ -36,7 +36,11 @@
 // by the wrapper) runs those tiles for bf16 inputs too, 32 rows a tile,
 // with the same bf16 rounding of s - m and exp2: the tensor-core tiles
 // hold a warp's output accumulator for 16 rows in registers, which at 256
-// columns would not fit beside the Q fragments.
+// columns would not fit beside the Q fragments. Heads above 256 run the
+// same tiles in column chunks of 256 (flash_common.cuh kWideCols): grid z
+// is the chunk, the scores stream q and k through Qs and Ks in slices of
+// 256 columns, and each chunk accumulates and writes its 256 output
+// columns; chunk 0 writes the LSE.
 #include "flash_common.cuh"
 
 #include <type_traits>
@@ -54,11 +58,13 @@ constexpr size_t fwd_smem() {
 // ---- f32 (and bf16 at head dim 256): the CUDA-core tiles of
 // flash_common.cuh
 
+// Dfull: the head dim, D itself or (at D = kWideCols) wider; blockIdx.z is
+// the column chunk
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, float qscale,
+                     float* __restrict__ lse, int S, int Dfull, float qscale,
                      int causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int LD = D + 1;
@@ -72,10 +78,13 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (S + BM - 1) / BM;
   const int qt = n_tiles - 1 - blockIdx.x;
   const int q0 = qt * BM;
-  const size_t base = (size_t)blockIdx.y * S * D;
+  const size_t base = (size_t)blockIdx.y * S * Dfull;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const bool wide = Dfull > D;
+  const int col0 = blockIdx.z * D;  // this chunk's output columns
+  const float cq = round_t<T>(qscale);
 
-  load_tile<T, D, true, BM>(Qs, q + base, q0, S, round_t<T>(qscale));
+  if (!wide) load_tile<T, D, true, BM>(Qs, q + base, q0, S, cq);
   float m[RI], l[RI], acc[RI][D / 16];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
@@ -87,13 +96,25 @@ __global__ void __launch_bounds__(kThreads)
   const int kt_end = causal ? qt : n_tiles - 1;
   for (int kt = 0; kt <= kt_end; ++kt) {
     const int k0 = kt * BM;
-    load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
-    load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
-    __syncthreads();
-
     float s[RI][BM / 16];
     zero<BM, BM>(s);
-    tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
+    if (!wide) {
+      load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f);
+      load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f);
+      __syncthreads();
+      tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
+    } else {
+      // the scores over the whole head, a slice of D columns at a time
+      for (int c0 = 0; c0 < Dfull; c0 += D) {
+        load_tile<T, D, true, BM>(Qs, q + base, q0, S, cq, Dfull, c0);
+        load_tile<T, D, false, BM>(Ks, k + base, k0, S, 0.f, Dfull, c0);
+        __syncthreads();
+        tile_mma<BM, BM, D, false, false>(s, Qs, LD, Ks, LD);
+        __syncthreads();  // the next slice overwrites Qs and Ks
+      }
+      // this chunk's V columns; the barrier before P V orders them
+      load_tile<T, D, false, BM>(Vs, v + base, k0, S, 0.f, Dfull, col0);
+    }
     const bool masked = (causal && kt == qt) || k0 + BM > S;
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
@@ -133,9 +154,12 @@ __global__ void __launch_bounds__(kThreads)
     if (qpos >= S) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      o[base + (size_t)qpos * D + tx + 16 * j] = from_f32<T>(acc[i][j] / ls);
-    if (lse != nullptr && tx == 0)
+    for (int j = 0; j < D / 16; ++j) {
+      const int col = col0 + tx + 16 * j;
+      if (col < Dfull)
+        o[base + (size_t)qpos * Dfull + col] = from_f32<T>(acc[i][j] / ls);
+    }
+    if (lse != nullptr && tx == 0 && blockIdx.z == 0)
       lse[(size_t)blockIdx.y * S + qpos] = m[i] + log2f(ls);
   }
 }
@@ -241,11 +265,12 @@ __global__ void __launch_bounds__(mma::kThreads)
 }
 
 // ---- launches: bf16 up to head dim 128 on the tensor cores, f32 (and bf16
-// at 256) on the CUDA-core tiles
+// at 256) on the CUDA-core tiles, heads above 256 on those tiles in chunks
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int BH, int S, float qscale, int causal, cudaStream_t stream) {
+           int BH, int S, int Dfull, float qscale, int causal,
+           cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16> && D <= 128) {
     dim3 grid((S + kTile - 1) / kTile, BH);
     const size_t bytes = mma_smem<D>();
@@ -256,13 +281,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
         static_cast<const T*>(v), static_cast<T*>(o), lse, S, qscale,
         causal);
   } else {
-    dim3 grid((S + tile_rows<D>() - 1) / tile_rows<D>(), BH);
+    dim3 grid((S + tile_rows<D>() - 1) / tile_rows<D>(), BH,
+              (Dfull + D - 1) / D);
     const size_t bytes = fwd_smem<D>();
     cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, bytes);
     if (err != cudaSuccess) return (int)err;
     flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), lse, S, qscale,
+        static_cast<const T*>(v), static_cast<T*>(o), lse, S, Dfull, qscale,
         causal);
   }
   return (int)cudaGetLastError();
@@ -274,21 +300,24 @@ int by_dim(const void* q, const void* k, const void* v, void* o, float* lse,
            cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, BH, S, qscale, causal, stream);
+      return launch<T, 32>(q, k, v, o, lse, BH, S, D, qscale, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, BH, S, qscale, causal, stream);
+      return launch<T, 64>(q, k, v, o, lse, BH, S, D, qscale, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, BH, S, qscale, causal, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, lse, BH, S, qscale, causal, stream);
+      return launch<T, 128>(q, k, v, o, lse, BH, S, D, qscale, causal,
+                            stream);
   }
+  if (D >= kWideCols && (D + kWideCols - 1) / kWideCols <= 65535)
+    return launch<T, kWideCols>(q, k, v, o, lse, BH, S, D, qscale, causal,
+                                stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128, 256}; lse may be null
-// (not written). Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; D in {32, 64, 128} or any D >= 256
+// (above 256 in column chunks); lse may be null (not written). Returns a
+// cudaError_t (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int BH, int S, int D, float qscale,
                          int causal, int dtype, void* stream) {

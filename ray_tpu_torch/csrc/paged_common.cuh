@@ -17,7 +17,8 @@
 //   3. per row, one warp: running max, p = exp2(s - m), running sum;
 //   4. acc[r, :] = acc[r, :] * alpha[r] + sum_t p[r, t] * v[t, :].
 // bf16 inputs round (s - m) and exp2 to bf16 and f32 inputs stay f32, as
-// the TPU kernels do; max, sum and accumulator are f32 either way.
+// the TPU kernels do; max, sum and accumulator are f32 either way. Heads
+// wider than 256 take attend_wide (below) in both kernels.
 //
 // Three types are separate: KV, the pool's storage type (f32, bf16, or a
 // quantized int8 / fp8-e4m3); P, the type the softmax rounds through; O,
@@ -286,6 +287,179 @@ __device__ void attend_tile(const KV* __restrict__ kpool,
     const float l = t.l[r];
     out[t.orow[r] + d] = from_f32<O>(t.acc[e] / (l == 0.f ? 1.f : l));
   }
+}
+
+// ---- heads wider than 256: the column-chunked walk of both kernels ----
+//
+// A tile of kWideRows query rows (one kv head of one sequence) over a range
+// of tokens, kWideKeys tokens a step, gathered token by token through the
+// block table, so any block size works. Chunk col0 of the output: the tile
+// accumulates and (through its caller) writes only columns col0 ..
+// col0 + kWideCols - 1, while each step's scores stream q and k over the
+// whole head in slices of kWideCols columns through one q tile and one k
+// tile. Every chunk computes the same scores in the same order, so its m
+// and l are the other chunks' too. The q, k and v tiles are f32 (a
+// quantized pool dequantized on staging, code * scale, the plain walk's
+// product), rows padded by one float; the softmax and its rounding are
+// those of attend_tile. Scalar loads: the correct path at widths no
+// configuration of the repo has, not a fast one.
+constexpr int kWideCols = 256;
+constexpr int kWideRows = 32;
+constexpr int kWideKeys = 16;
+
+struct WideTile {
+  float* qs;        // [kWideRows][kWideCols + 1] a slice of q, pre-scaled
+  float* ks;        // [kWideKeys][kWideCols + 1] a slice of k
+  float* vs;        // [kWideKeys][kWideCols + 1] this chunk's v columns
+  float* acc;       // [kWideRows][kWideCols]
+  float* sc;        // [kWideRows][kWideKeys] scores, then probabilities
+  float* m;         // [kWideRows]
+  float* l;         // [kWideRows]
+  float* alpha;     // [kWideRows]
+  long long* qrow;  // [kWideRows] element offset of each row's q, -1 = none
+  int* pos;         // [kWideRows] true position of each row
+
+  static constexpr int LD = kWideCols + 1;
+  static constexpr size_t kFloats =
+      (size_t)kWideRows * LD + 2 * (size_t)kWideKeys * LD +
+      (size_t)kWideRows * kWideCols + (size_t)kWideRows * kWideKeys +
+      3 * kWideRows;
+  static constexpr size_t kBytes = (kFloats * 4 + 7) / 8 * 8 +
+                                   kWideRows * (sizeof(long long) + sizeof(int));
+
+  __device__ static WideTile carve(unsigned char* base) {
+    WideTile t;
+    t.qs = reinterpret_cast<float*>(base);
+    t.ks = t.qs + kWideRows * LD;
+    t.vs = t.ks + kWideKeys * LD;
+    t.acc = t.vs + kWideKeys * LD;
+    t.sc = t.acc + kWideRows * kWideCols;
+    t.m = t.sc + kWideRows * kWideKeys;
+    t.l = t.m + kWideRows;
+    t.alpha = t.l + kWideRows;
+    t.qrow = reinterpret_cast<long long*>(base + (kFloats * 4 + 7) / 8 * 8);
+    t.pos = reinterpret_cast<int*>(t.qrow + kWideRows);
+    return t;
+  }
+};
+
+// column col of token tok's row of kv head kvh in a pool layer, widened
+// to f32 (times its scale for a quantized pool)
+template <typename KV>
+__device__ __forceinline__ float wide_kv(const KV* __restrict__ pool,
+                                         const float* __restrict__ scale,
+                                         const int* __restrict__ table,
+                                         int tok, int col, int hd, int bs,
+                                         int Hkv, int kvh) {
+  const size_t row = ((size_t)table[tok / bs] * bs + tok % bs) * Hkv + kvh;
+  float x = to_f32(pool[row * hd + col]);
+  if constexpr (kQuantized<KV>) x *= scale[row];
+  return x;
+}
+
+// Walk tokens t_lo..t_hi (inclusive) of one sequence for one kv head and
+// leave this chunk's (m, l, acc) in t. The caller has filled t.qrow and
+// t.pos and synchronised; c is round_Q(scale * log2 e). hd is the pool's
+// head dim (q is padded to it). Ends on a barrier.
+template <typename Q, typename KV, typename P>
+__device__ void attend_wide(const Q* __restrict__ q, float c,
+                            const KV* __restrict__ kpool,
+                            const KV* __restrict__ vpool,
+                            const float* __restrict__ kscale,
+                            const float* __restrict__ vscale,
+                            const int* __restrict__ table, int t_lo, int t_hi,
+                            int hd, int bs, int Hkv, int kvh, int window,
+                            int col0, WideTile& t) {
+  constexpr int R = kWideRows, KT = kWideKeys, C = kWideCols;
+  constexpr int LD = WideTile::LD;
+  constexpr int kPairs = R * KT / kThreads;  // (row, token) pairs a thread
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int e = tid; e < R * C; e += kThreads) t.acc[e] = 0.f;
+  for (int r = tid; r < R; r += kThreads) {
+    t.m[r] = kNegInf;
+    t.l[r] = 0.f;
+  }
+  for (int t0 = t_lo; t0 <= t_hi; t0 += KT) {
+    // scores of this thread's pairs p = tid + kThreads i: row p / KT,
+    // token t0 + p % KT, over the whole head a slice at a time
+    float s[kPairs];
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) s[i] = 0.f;
+    for (int s0 = 0; s0 < hd; s0 += C) {
+      __syncthreads();  // the last readers of qs, ks (and vs, sc) are done
+      for (int e = tid; e < R * C; e += kThreads) {
+        const int r = e / C, col = s0 + e % C;
+        const long long qr = t.qrow[r];
+        t.qs[r * LD + e % C] =
+            qr >= 0 && col < hd ? round_t<Q>(to_f32(q[qr + col]) * c) : 0.f;
+      }
+      for (int e = tid; e < KT * C; e += kThreads) {
+        const int tok = t0 + e / C, col = s0 + e % C;
+        t.ks[(e / C) * LD + e % C] =
+            tok <= t_hi && col < hd
+                ? wide_kv(kpool, kscale, table, tok, col, hd, bs, Hkv, kvh)
+                : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int p = tid + kThreads * i;
+        const float* qr = t.qs + (p / KT) * LD;
+        const float* kr = t.ks + (p % KT) * LD;
+        float x = s[i];
+        for (int d = 0; d < C; ++d) x += qr[d] * kr[d];
+        s[i] = x;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int p = tid + kThreads * i, r = p / KT, tok = t0 + p % KT;
+      const int pr = t.pos[r];
+      const bool ok = tok <= t_hi && tok <= pr &&
+                      (window <= 0 || tok > pr - window);
+      t.sc[p] = ok ? s[i] : kNegInf;
+    }
+    // this chunk's v columns
+    for (int e = tid; e < KT * C; e += kThreads) {
+      const int tok = t0 + e / C, col = col0 + e % C;
+      t.vs[(e / C) * LD + e % C] =
+          tok <= t_hi && col < hd
+              ? wide_kv(vpool, vscale, table, tok, col, hd, bs, Hkv, kvh)
+              : 0.f;
+    }
+    __syncthreads();
+    // online softmax, one warp per row (attend_tile's phase 3)
+    for (int r = warp; r < R; r += kWarps) {
+      float* sr = t.sc + r * KT;
+      float mx = kNegInf;
+      for (int k = lane; k < KT; k += 32) mx = fmaxf(mx, sr[k]);
+      mx = warp_max(mx);
+      const float m_prev = t.m[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int k = lane; k < KT; k += 32) {
+        const float p = round_t<P>(exp2f(round_t<P>(sr[k] - m_new)));
+        sr[k] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float a = exp2f(m_prev - m_new);
+        t.alpha[r] = a;
+        t.l[r] = a * t.l[r] + sum;
+        t.m[r] = m_new;
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < R * C; e += kThreads) {
+      const int r = e / C, d = e % C;
+      const float* pr = t.sc + r * KT;
+      float a = t.acc[e] * t.alpha[r];
+      for (int k = 0; k < KT; ++k) a += pr[k] * t.vs[k * LD + d];
+      t.acc[e] = a;
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace paged

@@ -58,6 +58,13 @@
 //
 // G rows are handled GR (1, 2, 4 or 8) at a time, in registers; a larger
 // group walks its range again per chunk of 8 rows (from L2).
+//
+// Heads above 256 (a lane's 8 columns times a warp's 32 lanes) take the
+// column-chunked walk of paged_common.cuh (attend_wide) in the same
+// split-K clusters: one block per (range, kv head, sequence, 256-column
+// chunk, tile of 32 query rows of the group); each rank leaves its
+// chunk's (m, l, acc) in shared memory and rank 0 combines them over
+// distributed shared memory, per chunk, as above.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -447,6 +454,96 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<GR>)
   cluster.sync();  // rank 0's reads of the other ranks are done
 }
 
+// ---- heads above 256: attend_wide per range, combined per chunk
+
+template <typename Q, typename KV>
+__global__ void __launch_bounds__(kThreads)
+    paged_decode_wide_kernel(const Args<Q, KV> a, int nchunks, int nrt) {
+  using P = std::conditional_t<paged::kQuantized<KV>, float, Q>;
+  constexpr int R = paged::kWideRows, C = paged::kWideCols;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x, nsplit = gridDim.x, kvh = blockIdx.y;
+  // z: sequence, then chunk, then row tile
+  const int rt = blockIdx.z % nrt, chunk = blockIdx.z / nrt % nchunks;
+  const int b = blockIdx.z / nrt / nchunks;
+  const int G = a.Hq / a.Hkv, g0 = rt * R, col0 = chunk * C;
+  paged::WideTile t = paged::WideTile::carve(smem);
+  float* fac = reinterpret_cast<float*>(smem + paged::WideTile::kBytes);
+  const int pos = a.positions[b];
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const int g = g0 + r;
+    t.pos[r] = pos;
+    t.qrow[r] = g < G ? ((long long)b * a.Hq + (long long)kvh * G + g) * a.hd
+                      : -1;
+  }
+  __syncthreads();
+  const int t_end = min(pos, a.NB * a.bs - 1);  // the last token to read
+  const int t_lo = rank * a.entries * a.bs;
+  const int t_hi = min(t_end, t_lo + a.entries * a.bs - 1);
+  paged::attend_wide<Q, KV, P>(a.q, paged::round_t<Q>(a.qscale), a.k, a.v,
+                               a.ks, a.vs, a.tables + (size_t)b * a.NB, t_lo,
+                               t_hi, a.hd, a.bs, a.Hkv, kvh, 0, col0, t);
+  cluster.sync();  // every rank's (m, l, acc) is written
+  if (rank == 0) {
+    const int nlive =
+        t_end < 0 ? 0 : min(nsplit, t_end / (a.entries * a.bs) + 1);
+    // per row: the combine factors of the live ranks, then 1 / l
+    for (int r = threadIdx.x; r < R; r += kThreads) {
+      float mc = paged::kNegInf;
+      for (int x = 0; x < nlive; ++x)
+        mc = fmaxf(mc, cluster.map_shared_rank(t.m, x)[r]);
+      float lc = 0.f;
+      for (int x = 0; x < nlive; ++x) {
+        const float f = exp2f(cluster.map_shared_rank(t.m, x)[r] - mc);
+        fac[x * R + r] = f;
+        lc += cluster.map_shared_rank(t.l, x)[r] * f;
+      }
+      fac[kMaxSplits * R + r] = lc == 0.f ? 1.f : lc;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * C; e += kThreads) {
+      const int r = e / C, col = col0 + e % C;
+      if (t.qrow[r] < 0 || col >= a.hd) continue;
+      float acc = 0.f;
+      for (int x = 0; x < nlive; ++x)
+        acc += cluster.map_shared_rank(t.acc, x)[e] * fac[x * R + r];
+      a.out[t.qrow[r] + col] =
+          paged::from_f32<Q>(acc / fac[kMaxSplits * R + r]);
+    }
+  }
+  cluster.sync();  // rank 0's reads of the other ranks are done
+}
+
+template <typename Q, typename KV>
+int launch_wide(const Args<Q, KV>& a, int B, int nsplit, cudaStream_t stream) {
+  const int nchunks = (a.hd + paged::kWideCols - 1) / paged::kWideCols;
+  const int nrt = (a.Hq / a.Hkv + paged::kWideRows - 1) / paged::kWideRows;
+  if ((long long)B * nchunks * nrt > 65535) return (int)cudaErrorInvalidValue;
+  const size_t bytes = paged::WideTile::kBytes +
+                       (size_t)(kMaxSplits + 1) * paged::kWideRows * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_wide_kernel<Q, KV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, a.Hkv, B * nchunks * nrt);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = nsplit;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, paged_decode_wide_kernel<Q, KV>, a,
+                           nchunks, nrt);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <typename Q, typename KV, int GR>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, const int* tables, const int* positions,
@@ -459,6 +556,7 @@ int launch(const void* q, const void* k, const void* v, const float* ks,
   a.tpt = 1;
   while (a.tpt * kCols < hd) a.tpt *= 2;
   a.qscale = qscale;
+  if (hd > paged::kWideCols) return launch_wide(a, B, nsplit, stream);
   const size_t bytes = smem_bytes(a.entries, GR, Hq / Hkv, hd);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -531,16 +629,17 @@ int launch_kv(int kvtype, const void* q, const void* k, const void* v,
 // dtype (q, out): 0 = float32, 1 = bfloat16. kvtype (pool): 0 = q's type,
 // 1 = int8, 2 = fp8-e4m3; a quantized pool needs its two scale planes and
 // hd % 16 == 0 (the rule of both paged kernels: B5 copies 16 codes a
-// piece). nsplit: ranges of table entries per (sequence, kv head), 1..8,
-// the cluster size. Returns a cudaError_t (0 = launched).
+// piece); heads above 256 take the column-chunked walk. nsplit: ranges of
+// table entries per (sequence, kv head), 1..8, the cluster size. Returns a
+// cudaError_t (0 = launched).
 extern "C" int paged_decode(const void* q, const void* k, const void* v,
                             const float* kscale, const float* vscale,
                             const int* tables, const int* positions, void* out,
                             int B, int Hq, int Hkv, int hd, int bs, int NB,
                             int nsplit, float qscale, int dtype, int kvtype,
                             void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv || hd <= 0 || hd % 8 || hd > 256 ||
-      bs <= 0 || NB <= 0 || nsplit < 1 || nsplit > kMaxSplits)
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv || hd <= 0 || hd % 8 || bs <= 0 ||
+      NB <= 0 || nsplit < 1 || nsplit > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   if (kvtype != 0 && (hd % 16 || kscale == nullptr || vscale == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -57,7 +57,9 @@
 // takes the same walk instantiated for bf16, with the TPU's bf16 rounding
 // of s - m and exp2 (f32 softmax under a quantized pool): the tensor-core
 // tiles keep a row's whole head in registers, which 256 columns of
-// accumulator and Q fragments would overflow.
+// accumulator and Q fragments would overflow. Heads above 256 (any q
+// type) take the column-chunked walk of paged_common.cuh (attend_wide):
+// one block per (32-row tile, kv head, sequence and 256-column chunk).
 #include "mma_common.cuh"
 #include "paged_common.cuh"
 
@@ -135,6 +137,97 @@ int launch_walk(const void* q, const void* k, const void* v, const float* ks,
       static_cast<const KV*>(v), ks, vs, tables, positions,
       static_cast<Q*>(out), S, Hq, Hkv, hd, bs, NB, qscale, window);
   return (int)cudaGetLastError();
+}
+
+// ---- heads above 256: the column-chunked walk (paged_common.cuh)
+
+template <typename Q, typename KV>
+__global__ void __launch_bounds__(paged::kThreads)
+    paged_prefill_wide_kernel(const Q* __restrict__ q,
+                              const KV* __restrict__ kpool,
+                              const KV* __restrict__ vpool,
+                              const float* __restrict__ kscale,
+                              const float* __restrict__ vscale,
+                              const int* __restrict__ tables,
+                              const int* __restrict__ positions,
+                              Q* __restrict__ out, int S, int Hq, int Hkv,
+                              int hd, int bs, int NB, float qscale,
+                              int window, int nchunks) {
+  using P = std::conditional_t<paged::kQuantized<KV>, float, Q>;
+  constexpr int R = paged::kWideRows, C = paged::kWideCols;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int j = blockIdx.x, kvh = blockIdx.y;
+  const int b = blockIdx.z / nchunks, col0 = (blockIdx.z % nchunks) * C;
+  const int G = Hq / Hkv;
+  paged::WideTile t = paged::WideTile::carve(smem);
+  // tile row r is (query, group) row rho = j * R + r, as in the walk above
+  for (int r = threadIdx.x; r < R; r += paged::kThreads) {
+    const int rho = j * R + r, s = rho / G;
+    const bool valid = s < S;
+    t.pos[r] = valid ? positions[(size_t)b * S + s] : 0;
+    t.qrow[r] = valid ? (((long long)b * S + s) * Hq + (long long)kvh * G +
+                         rho % G) * hd
+                      : -1;
+  }
+  __syncthreads();
+  int qmax = t.pos[0], qmin = t.pos[0];
+  for (int r = 1; r < R; ++r) {
+    qmax = max(qmax, t.pos[r]);
+    qmin = min(qmin, t.pos[r]);
+  }
+  const int t_hi = min(qmax, NB * bs - 1);
+  const int t_lo = window > 0 ? max(0, qmin - window + 1) : 0;
+  paged::attend_wide<Q, KV, P>(q, paged::round_t<Q>(qscale), kpool, vpool,
+                               kscale, vscale, tables + (size_t)b * NB, t_lo,
+                               t_hi, hd, bs, Hkv, kvh, window, col0, t);
+  for (int e = threadIdx.x; e < R * C; e += paged::kThreads) {
+    const int r = e / C, col = col0 + e % C;
+    if (t.qrow[r] < 0 || col >= hd) continue;
+    const float l = t.l[r];
+    out[t.qrow[r] + col] = paged::from_f32<Q>(t.acc[e] / (l == 0.f ? 1.f : l));
+  }
+}
+
+template <typename Q, typename KV>
+int launch_wide(const void* q, const void* k, const void* v, const float* ks,
+                const float* vs, const int* tables, const int* positions,
+                void* out, int B, int S, int Hq, int Hkv, int hd, int bs,
+                int NB, float qscale, int window, cudaStream_t stream) {
+  constexpr size_t bytes = paged::WideTile::kBytes;
+  cudaError_t err = mma::allow_smem(paged_prefill_wide_kernel<Q, KV>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = S * (Hq / Hkv);
+  const int nchunks = (hd + paged::kWideCols - 1) / paged::kWideCols;
+  if ((long long)B * nchunks > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((rows + paged::kWideRows - 1) / paged::kWideRows, Hkv,
+            B * nchunks);
+  paged_prefill_wide_kernel<Q, KV><<<grid, paged::kThreads, bytes, stream>>>(
+      static_cast<const Q*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), ks, vs, tables, positions,
+      static_cast<Q*>(out), S, Hq, Hkv, hd, bs, NB, qscale, window, nchunks);
+  return (int)cudaGetLastError();
+}
+
+template <typename Q>
+int launch_wide_kv(int kvtype, const void* q, const void* k, const void* v,
+                   const float* ks, const float* vs, const int* tables,
+                   const int* positions, void* out, int B, int S, int Hq,
+                   int Hkv, int hd, int bs, int NB, float qscale, int window,
+                   cudaStream_t s) {
+  switch (kvtype) {
+    case 0:
+      return launch_wide<Q, Q>(q, k, v, ks, vs, tables, positions, out, B, S,
+                               Hq, Hkv, hd, bs, NB, qscale, window, s);
+    case 1:
+      return launch_wide<Q, int8_t>(q, k, v, ks, vs, tables, positions, out,
+                                    B, S, Hq, Hkv, hd, bs, NB, qscale, window,
+                                    s);
+    case 2:
+      return launch_wide<Q, __nv_fp8_e4m3>(q, k, v, ks, vs, tables,
+                                           positions, out, B, S, Hq, Hkv, hd,
+                                           bs, NB, qscale, window, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- bf16 q: tensor cores
@@ -427,21 +520,33 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* ks,
 
 // dtype (q, out): 0 = float32, 1 = bfloat16. kvtype (pool): 0 = q's type,
 // 1 = int8, 2 = fp8-e4m3; a quantized pool needs its two scale planes and
-// hd % 16 == 0. hd: a multiple of 8 up to 256 (a bf16 q takes the tensor
-// cores up to 128 and the CUDA-core walk above). window <= 0 = none.
-// Returns a cudaError_t (0 = launched).
+// hd % 16 == 0. hd: a multiple of 8 (a bf16 q takes the tensor cores up to
+// 128 and the CUDA-core walk up to 256; above 256 every q type takes the
+// column-chunked walk). window <= 0 = none. Returns a cudaError_t (0 =
+// launched).
 extern "C" int paged_prefill(const void* q, const void* k, const void* v,
                              const float* kscale, const float* vscale,
                              const int* tables, const int* positions,
                              void* out, int B, int S, int Hq, int Hkv, int hd,
                              int bs, int NB, float qscale, int window,
                              int dtype, int kvtype, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd % 8 || hd > 256 ||
-      bs <= 0 || NB <= 0)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv || hd % 8 || bs <= 0 ||
+      NB <= 0)
     return (int)cudaErrorInvalidValue;
   if (kvtype != 0 && (hd % 16 || kscale == nullptr || vscale == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > paged::kWideCols) {
+    if (dtype == 0)
+      return launch_wide_kv<float>(kvtype, q, k, v, kscale, vscale, tables,
+                                   positions, out, B, S, Hq, Hkv, hd, bs, NB,
+                                   qscale, window, s);
+    if (dtype == 1)
+      return launch_wide_kv<__nv_bfloat16>(kvtype, q, k, v, kscale, vscale,
+                                           tables, positions, out, B, S, Hq,
+                                           Hkv, hd, bs, NB, qscale, window, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0) {
     switch (kvtype) {
       case 0:

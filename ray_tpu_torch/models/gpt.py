@@ -133,19 +133,54 @@ def gpt_quant_axes(cfg: GPTConfig) -> dict:
     return axes
 
 
-def _param(shape, name: str, cfg: GPTConfig, device, train: bool):
+def _param(shape, name: str, cfg, device, train: bool,
+           quant_axes: dict = _QUANT_AXES, f32_params=_F32_PARAMS):
+    """An uninitialized weight under the module docstring's policies:
+    ``quant_axes`` names the weights a quantized serving model holds as
+    ``QuantizedTensor``s (with their amax axis), ``f32_params`` those held
+    in f32 whatever ``cfg.dtype`` is."""
     kind = None if train else resolve_quantization(cfg.quantization)
-    if kind is not None and name in _QUANT_AXES:
-        axis = _QUANT_AXES[name]
+    if kind is not None and name in quant_axes:
+        axis = quant_axes[name]
         return QuantizedTensor(
             torch.empty(shape, dtype=quant_dtype(kind), device=device),
             torch.empty([1 if i == axis else n for i, n in enumerate(shape)],
                         dtype=torch.float32, device=device),
         )
-    dtype = torch.float32 if train or name in _F32_PARAMS else cfg.dtype
+    dtype = torch.float32 if train or name in f32_params else cfg.dtype
     return nn.Parameter(
         torch.empty(shape, dtype=dtype, device=device), requires_grad=train
     )
+
+
+@torch.no_grad()
+def load_weights(current: dict, state: dict) -> None:
+    """Copy ``state`` (tensors or QuantizedTensors by state-dict name, on
+    any device) into a model's ``current`` weights (its ``weights()``),
+    casting full-precision ones to their dtype; a quantized weight takes
+    only a quantized value of its own dtype and shapes."""
+    if set(state) != set(current):
+        raise KeyError(f"weights differ: missing "
+                       f"{sorted(set(current) - set(state))}, unexpected "
+                       f"{sorted(set(state) - set(current))}")
+    for name, value in state.items():
+        cur = current[name]
+        if isinstance(cur, QuantizedTensor):
+            if not (isinstance(value, QuantizedTensor)
+                    and value.dtype == cur.dtype
+                    and value.shape == cur.shape
+                    and value.scale.shape == cur.scale.shape):
+                raise TypeError(
+                    f"{name}: expected a {cur.dtype} QuantizedTensor of "
+                    f"shape {tuple(cur.shape)}, got {type(value).__name__}"
+                    f" {getattr(value, 'dtype', None)}")
+            cur.data.copy_(value.data)
+            cur.scale.copy_(value.scale)
+        elif isinstance(value, QuantizedTensor):
+            raise TypeError(f"{name} is quantized but the model holds it "
+                            f"in {cur.dtype} (quantization=None)")
+        else:
+            cur.copy_(value)
 
 
 class Block(nn.Module):
@@ -202,35 +237,9 @@ class GPT(nn.Module):
                 out[f"blocks.{i}.{name}"] = getattr(bp, name)
         return out
 
-    @torch.no_grad()
     def load_weights(self, state: dict) -> "GPT":
-        """Copy ``state`` (``weights()``-named tensors or QuantizedTensors,
-        on any device) into this model's weights, casting full-precision
-        ones to their dtype; a quantized weight takes only a quantized
-        value of its own dtype and shapes."""
-        current = self.weights()
-        if set(state) != set(current):
-            raise KeyError(f"weights differ: missing "
-                           f"{sorted(set(current) - set(state))}, unexpected "
-                           f"{sorted(set(state) - set(current))}")
-        for name, value in state.items():
-            cur = current[name]
-            if isinstance(cur, QuantizedTensor):
-                if not (isinstance(value, QuantizedTensor)
-                        and value.dtype == cur.dtype
-                        and value.shape == cur.shape
-                        and value.scale.shape == cur.scale.shape):
-                    raise TypeError(
-                        f"{name}: expected a {cur.dtype} QuantizedTensor of "
-                        f"shape {tuple(cur.shape)}, got {type(value).__name__}"
-                        f" {getattr(value, 'dtype', None)}")
-                cur.data.copy_(value.data)
-                cur.scale.copy_(value.scale)
-            elif isinstance(value, QuantizedTensor):
-                raise TypeError(f"{name} is quantized but the model holds it "
-                                f"in {cur.dtype} (quantization=None)")
-            else:
-                cur.copy_(value)
+        """Copy ``state`` into this model's weights (``load_weights``)."""
+        load_weights(self.weights(), state)
         return self
 
     @torch.no_grad()

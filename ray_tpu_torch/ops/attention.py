@@ -20,7 +20,10 @@ cores with the same bf16 rounding). Any other D up to 256 runs through
 built width and the outputs and gradients sliced back. Zero columns add
 nothing to q·kᵀ and give zero output and gradient columns, and the
 softmax scale is passed in (1/√D of the true D), so the padding is exact.
-D > 256 raises.
+A head above 256 runs unpadded on the CUDA-core tiles of 256 in column
+chunks: each chunk of 256 output columns is one block column of the
+launch, its scores (and dP) summed over the whole head in slices of 256,
+at the cost of one score recompute per extra chunk.
 
 Beside each is its plain version (``flash_forward_reference``,
 ``flash_bwd_dkv_reference``, ``flash_bwd_dq_reference``, and
@@ -54,7 +57,9 @@ LN2 = math.log(2.0)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)  # head dims the CUDA kernels are built for
+# head dims the CUDA kernels are built for; above the last, any head dim
+# runs in column chunks of that width
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def reset_launches() -> None:
@@ -197,12 +202,6 @@ def _check(name, tensors):
             f"{name}: q, k, v (and dO) must be [B, H, S, D] of one shape, got "
             f"{[tuple(t.shape) for t in tensors[:4]]}"
         )
-    if q.shape[-1] > HEAD_DIMS[-1]:
-        raise ValueError(
-            f"{name}: head dim {q.shape[-1]} is above {HEAD_DIMS[-1]}, the "
-            f"widest the kernels are built for (narrower heads pad to one of "
-            f"{HEAD_DIMS})"
-        )
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: all tensors must be contiguous")
 
@@ -211,18 +210,22 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def kernel_head_dim(D: int) -> int:
+    """The head dim the kernels run a head of D at: the next width of
+    ``HEAD_DIMS``, or D itself above the last (column chunks)."""
+    return next((w for w in HEAD_DIMS if w >= D), D)
+
+
 def head_padded(fn, *args, **kw):
     """``fn(*args, **kw)`` with every 4-d ``[B, H, S, D]`` argument
-    zero-padded along D to the next width of ``HEAD_DIMS``, and every 4-d
-    result sliced back to D (3-d ones, lse and delta, pass as they are).
-    The caller passes the scale of the true D."""
+    zero-padded along D to ``kernel_head_dim(D)``, and every 4-d result
+    sliced back to D (3-d ones, lse and delta, pass as they are); a head
+    above 256 passes as it is. The caller passes the scale of the true
+    D."""
     D = args[0].shape[-1]
-    width = next((w for w in HEAD_DIMS if w >= D), None)
-    if width is None:
-        raise ValueError(
-            f"flash attention kernels: head dim {D} is above "
-            f"{HEAD_DIMS[-1]}, the widest they are built for"
-        )
+    width = kernel_head_dim(D)
+    if width == D:
+        return fn(*args, **kw)
 
     def pad(t):
         if isinstance(t, torch.Tensor) and t.dim() == 4:
@@ -243,7 +246,7 @@ def flash_forward_cuda(q, k, v, *, causal: bool, scale: float,
     """Kernel B1; same contract as ``flash_forward_reference`` (lse is None
     unless ``save_lse``)."""
     _check("flash_fwd", (q, k, v))
-    if q.shape[-1] not in HEAD_DIMS:
+    if kernel_head_dim(q.shape[-1]) != q.shape[-1]:
         return head_padded(flash_forward_cuda, q, k, v, causal=causal,
                            scale=scale, save_lse=save_lse)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -280,7 +283,7 @@ def flash_bwd_dkv_cuda(q, k, v, lse, delta, do, *, causal: bool,
                        scale: float):
     """Kernel B2; same contract as ``flash_bwd_dkv_reference``."""
     _check_bwd("flash_bwd_dkv", q, k, v, lse, delta, do)
-    if q.shape[-1] not in HEAD_DIMS:
+    if kernel_head_dim(q.shape[-1]) != q.shape[-1]:
         return head_padded(flash_bwd_dkv_cuda, q, k, v, lse, delta, do,
                            causal=causal, scale=scale)
     B, H, S, D = q.shape
@@ -302,7 +305,7 @@ def flash_bwd_dq_cuda(q, k, v, lse, delta, do, *, causal: bool,
                       scale: float):
     """Kernel B3; same contract as ``flash_bwd_dq_reference``."""
     _check_bwd("flash_bwd_dq", q, k, v, lse, delta, do)
-    if q.shape[-1] not in HEAD_DIMS:
+    if kernel_head_dim(q.shape[-1]) != q.shape[-1]:
         return head_padded(flash_bwd_dq_cuda, q, k, v, lse, delta, do,
                            causal=causal, scale=scale)
     B, H, S, D = q.shape
@@ -324,7 +327,7 @@ def flash_backward_cuda(q, k, v, o, lse, do, *, causal: bool, scale: float):
     """Kernels B2 then B3; same contract as ``flash_backward_reference``."""
     if not o.is_cuda or o.shape != q.shape or o.dtype != q.dtype:
         raise ValueError("flash_bwd runs only on CUDA tensors, o like q")
-    if q.shape[-1] not in HEAD_DIMS:  # pad once for both kernels
+    if kernel_head_dim(q.shape[-1]) != q.shape[-1]:  # pad once for both
         return head_padded(flash_backward_cuda, q, k, v, o, lse, do,
                            causal=causal, scale=scale)
     delta = attention_delta(o, do)

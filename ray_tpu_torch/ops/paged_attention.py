@@ -13,8 +13,13 @@
   128 runs on the tensor cores; an f32 q, and a bf16 q with head_dim
   129-256, run the CUDA-core walk.
 
+Heads above 256 run both kernels' column-chunked walk
+(``csrc/paged_common.cuh`` ``attend_wide``): a block per 256 output
+columns, its scores summed over the whole head in slices of 256 (B4 keeps
+its split-K clusters and combines per chunk).
+
 Both take the same arguments as their plain versions in
-``ops/kv_cache.py``, any head dim up to 256: a pool is held at
+``ops/kv_cache.py``, any head dim: a pool is held at
 ``pool_head_dim`` (16-byte rows), and where that is wider than q's head
 dim the wrapper zero-pads q to it, launches at the scale of the true head
 dim and slices the output back. A pool of ``QuantizedKV`` layers (int8 or fp8-e4m3
@@ -160,12 +165,12 @@ def _check(name, q, k_layer, v_layer, block_tables, positions, q_dims):
         )
     hd, Hq = q.shape[-1], q.shape[-2]
     _, bs, Hkv, hd_pool = k_layer.shape
-    if hd > 256 or hd_pool != pool_head_dim(hd, quant) or Hq % Hkv:
+    if hd_pool != pool_head_dim(hd, quant) or Hq % Hkv:
         raise ValueError(
-            f"{name}: head_dim {hd} must be at most 256, held in a pool of "
-            f"head dim pool_head_dim({hd}) = {pool_head_dim(hd, quant)} "
-            f"(got {hd_pool}; the kernels copy rows in 16-byte pieces), and "
-            f"query heads {Hq} a multiple of kv heads {Hkv}"
+            f"{name}: head_dim {hd} must be held in a pool of head dim "
+            f"pool_head_dim({hd}) = {pool_head_dim(hd, quant)} (got "
+            f"{hd_pool}; the kernels copy rows in 16-byte pieces), and query "
+            f"heads {Hq} a multiple of kv heads {Hkv}"
         )
     B = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != B:

@@ -33,6 +33,14 @@ prefill syncs at lag 0, and its signatures ("prefill" or
 "prefill_chunk", tokens shape, tables shape) join the same set. On the
 CPU the same objects run every step eagerly.
 
+``FAMILIES`` is the registry of model families the engine serves
+(``ray_tpu/serve/llm/decode.py`` ``FAMILIES``), kept in
+``models/families.py`` so that training imports it without this module
+and re-exported here: each names its config and model classes, its
+seeded init, its quantization axes and its full width. The model
+steps themselves are generic: every family's model has the same
+``prefill`` / ``decode_step`` contract.
+
 The kernel wrappers count the launches they make themselves, not those
 recorded into a graph under capture; a replay launches the graph's
 kernels without calling a wrapper, and a profiler trace of the device
@@ -44,6 +52,13 @@ import time
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.models.families import (  # noqa: F401  (re-exported)
+    FAMILIES,
+    Family,
+    family,
+    family_of,
+)
 
 
 class Layout:

@@ -34,6 +34,9 @@ a step is in flight are quarantined until the next sync
 (``kv_cache.flush_quarantine``). Prefill syncs its first tokens at once
 (lag 0).
 
+``EngineConfig.model`` names the model family (``decode.FAMILIES``:
+"llama", the default as in the JAX engine, or "gpt"); the pool holds the
+family's kv heads (``n_kv_head`` for Llama's grouped-query attention).
 ``EngineConfig.quantization`` ("int8" | "fp8") serves from quantized
 weights and a quantized pool (``ops/quantization.py``).
 
@@ -59,10 +62,11 @@ import numpy as np
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.exceptions import EngineDiedError, RequestCancelledError
-from ray_tpu_torch.models.gpt import GPTConfig
+from ray_tpu_torch.models.families import kv_heads
 from ray_tpu_torch.ops.paged_attention import resolve_backend
 from ray_tpu_torch.ops.quantization import resolve_quantization
 from ray_tpu_torch.serve._shapes import pad_to_bucket, pow2_buckets
+from ray_tpu_torch.serve.llm.decode import family
 from ray_tpu_torch.serve.llm.executor import SingleDeviceExecutor
 from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
 
@@ -103,8 +107,8 @@ class SamplingParams:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    model: str = "gpt"            # only the GPT family is ported
-    model_config: Any = None      # GPTConfig; None -> GPTConfig.tiny()
+    model: str = "llama"          # gpt | llama (decode.py FAMILIES)
+    model_config: Any = None      # GPTConfig/LlamaConfig; None -> .tiny()
     block_size: int = 16
     num_blocks: int = 64
     max_batch_size: int = 8       # max concurrently-running sequences
@@ -200,8 +204,9 @@ class LLMEngine:
     ``auto_step=True`` runs the scheduler on a background thread;
     ``auto_step=False`` lets the caller drive ``step()``. All scheduler
     and cache state is guarded by one lock. ``params`` is a state dict of
-    GPT weights (``convert.gpt_params_from_numpy``); None draws seeded
-    random weights on the device."""
+    the family's weights (``convert.gpt_params_from_numpy`` /
+    ``llama_params_from_numpy``); None draws seeded random weights on the
+    device."""
 
     def __init__(
         self,
@@ -215,12 +220,14 @@ class LLMEngine:
             cfg = EngineConfig(**overrides)
         elif overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        if cfg.model != "gpt":
-            raise ValueError(
-                f"model {cfg.model!r} is not ported yet; only 'gpt' is"
+        fam = family(cfg.model)
+        model_cfg = cfg.model_config or fam.config.tiny()
+        if not isinstance(model_cfg, fam.config):
+            raise TypeError(
+                f"model={cfg.model!r} takes a {fam.config.__name__}, got "
+                f"{type(model_cfg).__name__}"
             )
         device = resolve_device(cfg.device)
-        model_cfg = cfg.model_config or GPTConfig.tiny()
         backend = resolve_backend(
             cfg.attention_backend or model_cfg.attention_backend, device
         )
@@ -240,7 +247,7 @@ class LLMEngine:
         self.cache = PagedKVCache(
             KVCacheConfig(
                 n_layer=model_cfg.n_layer,
-                n_kv_head=model_cfg.n_head,
+                n_kv_head=kv_heads(model_cfg),
                 head_dim=model_cfg.head_dim,
                 num_blocks=cfg.num_blocks,
                 block_size=cfg.block_size,

@@ -2,7 +2,8 @@
 ``ray_tpu/serve/llm/executor.py``'s ``SingleDeviceExecutor``).
 
 The engine stages every input as numpy; the executor owns the weights
-(a ``GPT`` module), the paged pool tensors (``cache.k`` / ``cache.v``,
+(the model of its family in ``decode.FAMILIES``, ``GPT`` or ``Llama``),
+the paged pool tensors (``cache.k`` / ``cache.v``,
 written in place by the model), the model steps (``decode.DecodeFns``:
 one CUDA graph per decode signature on a card) and the one device-to-host
 copy per step: the step's sampled ids, O(batch) int32, never logits.
@@ -40,12 +41,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ray_tpu_torch.models.gpt import GPT, gpt_init, gpt_quant_axes
 from ray_tpu_torch.ops.quantization import quantize_params
 from ray_tpu_torch.ops.sampling import greedy_rows, keyed_uniform
 from ray_tpu_torch.serve.llm.decode import (
     DecodeFns,
     Layout,
+    family,
+    family_of,
     model_sample,
     sample_fields,
 )
@@ -69,27 +71,30 @@ def _all_greedy(sample: dict) -> bool:
 
 
 class SingleDeviceExecutor:
-    """One device: unsharded weights and pool. ``params`` is a state dict
-    (``convert.gpt_params_from_numpy``); None draws seeded random weights
-    on the device."""
+    """One device: unsharded weights and pool, for the model family whose
+    config ``model_cfg`` is (``decode.FAMILIES``). ``params`` is a state
+    dict (``convert.gpt_params_from_numpy`` / ``llama_params_from_numpy``);
+    None draws seeded random weights on the device."""
 
     def __init__(self, model_cfg, cache, *, params: dict | None = None,
                  seed: int = 0):
+        self.family = family_of(model_cfg)
+        fam = family(self.family)
         self.model_cfg = model_cfg
         self.quantization = model_cfg.quantization
         self.cache = cache
         self.device = cache.k.device
         if params is None and self.quantization is None:
-            self.model = gpt_init(model_cfg, seed, self.device)
+            self.model = fam.init(model_cfg, seed, self.device)
         else:
             if params is None:
                 f32 = dataclasses.replace(model_cfg, dtype=torch.float32,
                                           quantization=None)
-                params = gpt_init(f32, seed, self.device).weights()
+                params = fam.init(f32, seed, self.device).weights()
             if self.quantization is not None:
-                params = quantize_params(params, gpt_quant_axes(model_cfg),
+                params = quantize_params(params, fam.quant_axes(model_cfg),
                                          self.quantization)
-            self.model = GPT(model_cfg, self.device).load_weights(params)
+            self.model = fam.model(model_cfg, self.device).load_weights(params)
         self.fns = DecodeFns(self.model, cache)
         self._on_card = self.device.type == "cuda"
         # (name, size) -> [buffer 0, buffer 1, index of the last one used]

@@ -54,7 +54,8 @@ def _port_engine(weights, **kw):
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
     _, _, tcfg, state = weights
-    cfg = EngineConfig(model_config=tcfg, device="cpu", **BUCKETS, **kw)
+    cfg = EngineConfig(model="gpt", model_config=tcfg, device="cpu",
+                       **BUCKETS, **kw)
     return LLMEngine(cfg, params=state, auto_step=False)
 
 
@@ -130,8 +131,8 @@ def test_auto_step_serves_and_shuts_down(weights):
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
     _, _, tcfg, state = weights
-    engine = LLMEngine(EngineConfig(model_config=tcfg, device="cpu",
-                                    **BUCKETS), params=state)
+    engine = LLMEngine(EngineConfig(model="gpt", model_config=tcfg,
+                                    device="cpu", **BUCKETS), params=state)
     (prompt, _), = _prompts()[:1]
     try:
         assert engine.generate(prompt, max_new_tokens=5) == _run(

@@ -188,13 +188,19 @@ def test_head_padded_flash_matches_unpadded(D, causal):
     assert (wrong - o).abs().max().item() > 1e-3
 
 
-def test_head_padded_refuses_heads_above_256():
+def test_head_padded_passes_heads_above_256_through():
+    """Heads above 256 run the kernels' column chunks unpadded:
+    ``head_padded`` hands D 264 and 512 to its function as they are, and
+    the result is the unpadded one, bit for bit."""
     from ray_tpu_torch.ops import attention as at
 
-    x = torch.zeros(1, 1, 4, 264)
-    with pytest.raises(ValueError, match="above 256"):
-        at.head_padded(at.flash_forward_reference, x, x, x, causal=True,
-                       scale=1.0)
+    for D in (264, 512):
+        q, k, v, _ = (torch.from_numpy(x) for x in _inputs(D, 1, 2, 2, 9, D))
+        assert at.kernel_head_dim(D) == D
+        kw = dict(causal=True, scale=D ** -0.5)
+        o, lse = at.flash_forward_reference(q, k, v, **kw)
+        po, plse = at.head_padded(at.flash_forward_reference, q, k, v, **kw)
+        assert torch.equal(po, o) and torch.equal(plse, lse)
 
 
 def test_flash_wrappers_refuse_cpu_tensors():

@@ -109,6 +109,14 @@ def _prefill_inputs(dev, dtype, starts, S, lens, Hkv, G, hd, bs, seed=9):
     (65, [0, 64, 200], [65, 65, 65], 2, 40, 16, 40),
     (65, [17, 64, 3], [65, 30, 65], 1, None, 16, 96),
     (65, [0, 129, 7], [65, 65, 65], 1, None, 16, 128),
+    # groups that are not a power of two (Llama-125M's 3) and 6: a 16-row
+    # fragment of (query, group) rows straddles queries; fresh, ragged
+    # and windowed, block sizes 16 and 32
+    (45, [0, 0, 0], [45, 45, 20], 3, None, 16, 64),
+    (100, [3, 130, 0], [100, 64, 100], 3, None, 32, 64),
+    (90, [5, 60, 121], [90, 45, 90], 3, 70, 16, 64),
+    (45, [0, 0, 0], [45, 33, 45], 6, None, 32, 64),
+    (100, [0, 70, 200], [100, 100, 77], 6, 50, 16, 64),
 ])
 def test_prefill_kernel_matches_plain(cuda, dtype, S, starts, lens, gqa,
                                       window, bs, hd):
@@ -126,19 +134,18 @@ def test_prefill_kernel_matches_plain(cuda, dtype, S, starts, lens, gqa,
 
 
 def test_prefill_wrapper_takes_heads_up_to_256(cuda):
-    """Heads above 256, and a pool not held at ``pool_head_dim``, are
-    refused before any launch; hd 100 in its padded pool (104), and a
-    bf16 q and an f32 q at 256 (both on B5's CUDA-core walk), run and
-    match their plain versions."""
+    """A pool not held at ``pool_head_dim`` is refused before any launch;
+    hd 100 in its padded pool (104), and a bf16 q and an f32 q at 256
+    (both on B5's CUDA-core walk), run and match their plain versions
+    (heads above 256: ``test_paged_kernels_above_256_match_plain``)."""
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.ops.kv_cache import paged_prefill_attention
 
     before = dict(pa.LAUNCHES)
-    for hd in (264, 100):  # 100: its pool is not padded to 104
-        q, k, v, tables, pos, _ = _prefill_inputs(
-            cuda, torch.bfloat16, [0], 8, [8], 1, 1, hd, 16)
-        with pytest.raises(ValueError, match="pool_head_dim"):
-            pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
+    q, k, v, tables, pos, _ = _prefill_inputs(  # not padded to 104
+        cuda, torch.bfloat16, [0], 8, [8], 1, 1, 100, 16)
+    with pytest.raises(ValueError, match="pool_head_dim"):
+        pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
     assert pa.LAUNCHES == before
     q, k, v, tables, pos, _ = _prefill_inputs(
         cuda, torch.bfloat16, [0], 8, [8], 1, 1, 100, 16)
@@ -265,7 +272,7 @@ def _quantized(k, v, kind):
 
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gqa", [1, 2])
+@pytest.mark.parametrize("gqa", [1, 2, 3, 6])
 def test_quantized_decode_kernel_matches_plain(cuda, kind, dtype, gqa):
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.ops.kv_cache import paged_attention
@@ -289,7 +296,8 @@ def test_quantized_decode_kernel_matches_plain(cuda, kind, dtype, gqa):
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gqa,window", [(1, None), (2, None), (1, 7),
-                                        (2, 24)])
+                                        (2, 24), (3, None), (3, 24),
+                                        (6, None)])
 def test_quantized_prefill_kernel_matches_plain(cuda, kind, dtype, gqa,
                                                 window):
     from ray_tpu_torch.ops import paged_attention as pa
@@ -402,6 +410,71 @@ def test_gpt_cuda_backend_matches_torch_backend(cuda):
                                    tables)
         out[name] = torch.cat([logits, step])
     assert (out["cuda"] - out["torch"]).abs().max().item() <= 1e-4
+
+
+def _llama_tiny(groups, **kw):
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    shape = {} if groups == 2 else dict(n_head=6, n_kv_head=2, d_model=96)
+    return dataclasses.replace(LlamaConfig.tiny(), **shape, **kw)
+
+
+@pytest.mark.parametrize("groups", [2, 3])
+def test_llama_cuda_backend_matches_torch_backend(cuda, groups):
+    """Tiny Llama (f32) at G 2 and 3: prefill and a decode step through
+    B5/B4 against the plain backend on the same weights (1e-4), then one
+    bf16 training step through B1-B3 (the kv heads repeated) against the
+    plain backend at the training phase's bars (loss 1e-2, gradients 2e-2
+    relative L2)."""
+    from ray_tpu_torch.benchmarks.gpt_mfu import bench_batch
+    from ray_tpu_torch.models.llama import Llama, llama_init
+    from ray_tpu_torch.ops import attention as at
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    cfg = _llama_tiny(groups, dtype=torch.float32, attention_backend="cuda")
+    ref = llama_init(dataclasses.replace(cfg, attention_backend="torch"),
+                     seed=0, device=cuda)
+    model = Llama(cfg, cuda).load_weights(ref.weights())
+    B, S, bs, NB = 2, 24, 8, 5
+    tables = torch.arange(1, 1 + B * NB, dtype=torch.int32,
+                          device=cuda).reshape(B, NB)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    lengths = torch.tensor([24, 13], dtype=torch.int32, device=cuda)
+    out = {}
+    before = dict(pa.LAUNCHES)
+    for name, m in (("cuda", model), ("torch", ref)):
+        shape = (cfg.n_layer, 1 + B * NB, bs, cfg.n_kv_head, cfg.head_dim)
+        ck, cv = torch.zeros(shape, device=cuda), torch.zeros(shape, device=cuda)
+        logits, _, _ = m.prefill(ck, cv, tokens, lengths, tables)
+        step, _, _ = m.decode_step(ck, cv, logits.argmax(-1).int(), lengths,
+                                   tables)
+        out[name] = torch.cat([logits, step])
+    assert {n: pa.LAUNCHES[n] - before[n] for n in before
+            if pa.LAUNCHES[n] != before[n]} == {
+        "paged_prefill": cfg.n_layer, "paged_decode": cfg.n_layer}
+    assert (out["cuda"] - out["torch"]).abs().max().item() <= 1e-4
+
+    cfg = _llama_tiny(groups, attention_backend="cuda")  # bf16 activations
+    models = {"cuda": llama_init(cfg, seed=0, device=cuda, train=True)}
+    models["torch"] = Llama(dataclasses.replace(cfg, attention_backend="torch"),
+                            cuda, train=True)
+    models["torch"].load_state_dict(models["cuda"].state_dict())
+    batch = bench_batch(cfg, 2, 64, 5, cuda)
+    loss, grads = {}, {}
+    before = dict(at.LAUNCHES)
+    for name, m in models.items():
+        value = m.loss(batch)
+        value.backward()
+        loss[name] = value.item()
+        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+    assert {n: at.LAUNCHES[n] - before[n] for n in before} == dict.fromkeys(
+        before, cfg.n_layer)
+    assert abs(loss["cuda"] - loss["torch"]) <= 1e-2
+    for n, want in grads["torch"].items():
+        rel = ((grads["cuda"][n] - want).float().norm()
+               / want.float().norm().clamp(min=1e-30)).item()
+        assert rel <= 2e-2, (n, rel)
 
 
 # ---- flash attention: B1 (forward), B2 (dK/dV) and B3 (dQ), at TOL
@@ -613,6 +686,7 @@ def _check_decode(dev, dtype, q, k, v, tables, pos, key):
     (16, 1, 64, 64), (8, 2, 64, 64), (32, 4, 64, 32), (16, 8, 64, 64),
     (16, 1, 128, 64), (8, 4, 128, 48), (16, 2, 256, 64), (32, 8, 256, 32),
     (16, 3, 64, 64), (16, 12, 128, 40), (16, 1, 40, 64), (32, 2, 8, 20),
+    (32, 3, 64, 32), (16, 6, 64, 64),
 ])
 def test_split_decode_kernel_matches_plain(cuda, dtype, bs, G, hd, NB):
     Hkv = 2
@@ -643,6 +717,11 @@ def test_long_context_decode_kernel_matches_plain(cuda, dtype, lengths, Hkv,
     (None, 2, 2, 256, 32, 32),
     ([4096], 12, 1, 64, 16, 256),
     ([4096, 1000], 2, 8, 128, 16, 256),
+    # Llama-125M's group (3: the four-row register path, its fourth row
+    # masked) and 6, across the split boundaries, block sizes 16 and 32
+    (None, 4, 3, 64, 16, 64),
+    (None, 2, 3, 64, 32, 32),
+    (None, 2, 6, 64, 16, 64),
 ])
 def test_quantized_split_decode_kernel_matches_plain(cuda, kind, dtype,
                                                      lengths, Hkv, G, hd, bs,
@@ -762,11 +841,15 @@ def test_flash_kernels_pad_narrow_heads(cuda, dtype, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,D,causal", [(100, 160, True), (100, 160, False),
                                         (65, 256, True), (130, 256, False),
-                                        (1, 256, True)])
+                                        (1, 256, True),
+                                        (70, 264, True), (70, 264, False),
+                                        (65, 320, True), (65, 320, False),
+                                        (40, 512, True), (40, 512, False)])
 def test_flash_kernels_at_wide_heads_match_plain(cuda, dtype, S, D, causal):
     """B1-B3 at head dims 129-256 (the CUDA-core tiles of 32 rows; 160
-    zero-padded to 256 at the true scale) against their plain versions at
-    the true D; D 264 is refused before any launch."""
+    zero-padded to 256 at the true scale) and above 256 (the same tiles
+    in column chunks of 256, unpadded) against their plain versions at
+    the true D."""
     from ray_tpu_torch.ops import attention as at
 
     gen = torch.Generator(device=cuda).manual_seed(D + S)
@@ -786,11 +869,44 @@ def test_flash_kernels_at_wide_heads_match_plain(cuda, dtype, S, D, causal):
     for got, want in zip(grads, refs):
         assert got.shape == want.shape
         _assert_close(got, want, dtype)
-    x = torch.zeros(1, 2, 8, 264, device=cuda, dtype=dtype)
-    before = dict(at.LAUNCHES)
-    with pytest.raises(ValueError, match="above 256"):
-        at.flash_forward_cuda(x, x, x, causal=True, scale=1.0)
-    assert at.LAUNCHES == before
+
+
+# ---- heads above 256: B4/B4q and B5/B5q in column chunks of 256, every
+# pool, pools at pool_head_dim as the engine allocates them
+@pytest.mark.parametrize("kind", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(288, 3), (512, 1)])
+def test_paged_kernels_above_256_match_plain(cuda, kind, dtype, hd, G):
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import (
+        paged_attention,
+        paged_prefill_attention,
+    )
+
+    suffix = f"_{kind}" if kind else ""
+    pool_dtype = torch.float32 if kind else dtype
+    lengths = _boundary_lengths(7, 2, 16, 24)
+    q, k, v, tables, pos = _decode_inputs(cuda, pool_dtype, lengths, 2, G,
+                                          hd, 16, 24, seed=hd)
+    k, v = _padded_pool(k, v, kind)
+    before = dict(pa.LAUNCHES)
+    got = pa.paged_attention_cuda(q.to(dtype), k, v, tables, pos)
+    torch.cuda.synchronize()
+    _assert_close(got, paged_attention(q.to(dtype), k, v, tables, pos),
+                  dtype)
+    q, k, v, tables, pos, valid = _prefill_inputs(
+        cuda, pool_dtype, [0, 5, 40], 45, [45, 30, 12], 2, G, hd, 16)
+    k, v = _padded_pool(k, v, kind)
+    for window in (None, 24):
+        got = pa.paged_prefill_attention_cuda(q.to(dtype), k, v, tables, pos,
+                                              window=window)
+        torch.cuda.synchronize()
+        want = paged_prefill_attention(q.to(dtype), k, v, tables, pos,
+                                       window=window)
+        _assert_close(got[valid], want[valid], dtype)
+    assert {n: pa.LAUNCHES[n] - before[n] for n in before
+            if pa.LAUNCHES[n] != before[n]} == {
+        "paged_decode" + suffix: 1, "paged_prefill" + suffix: 2}
 
 
 def test_gpt_tiny_trains_on_cuda_with_padded_heads(cuda):
@@ -952,7 +1068,7 @@ def test_engine_decode_steps_make_no_host_sync(cuda):
 
     cfg = GPTConfig(vocab_size=512, max_seq_len=256, n_layer=2, n_head=4,
                     d_model=256, d_mlp=1024)
-    eng = LLMEngine(EngineConfig(model_config=cfg, num_blocks=128),
+    eng = LLMEngine(EngineConfig(model="gpt", model_config=cfg, num_blocks=128),
                     auto_step=False)
     reqs = [([1, 2, 3], {}), ([5] * 40, {"temperature": 0.9, "seed": 3}),
             ([7] * 90, {})]

@@ -35,7 +35,7 @@ def _engine(**kw):
     kw.setdefault("block_size", 8)
     kw.setdefault("num_blocks", 64)
     kw.setdefault("model_config", _config())
-    return LLMEngine(EngineConfig(device="cpu", seed=1, **kw),
+    return LLMEngine(EngineConfig(model="gpt", device="cpu", seed=1, **kw),
                      auto_step=False)
 
 
@@ -236,7 +236,7 @@ def test_pipelined_streams_match_jax_engine(weights, kind):
     want = [list(s) for s in jstreams]
     jax_engine.shutdown()
 
-    eng = LLMEngine(EngineConfig(model_config=tcfg, device="cpu",
+    eng = LLMEngine(EngineConfig(model="gpt", model_config=tcfg, device="cpu",
                                  quantization=kind, **BUCKETS),
                     params=state, auto_step=False)
     streams = []

@@ -399,8 +399,9 @@ def test_quantized_engine_streams_match_jax_engine(weights, kind):
     for params in (gpt_params_from_numpy(tree, tcfg),
                    gpt_params_from_numpy(jq, tcfg)):
         engine = LLMEngine(
-            EngineConfig(model_config=tcfg, device="cpu", quantization=kind,
-                         prefill_chunk_tokens=8, **BUCKETS),
+            EngineConfig(model="gpt", model_config=tcfg, device="cpu",
+                         quantization=kind, prefill_chunk_tokens=8,
+                         **BUCKETS),
             params=params, auto_step=False)
         assert engine.executor.quantization == kind
         assert engine.model_cfg.quantization == kind
@@ -422,8 +423,9 @@ def test_quantized_engine_random_weights_quantize_f32_init(kind):
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
     cfg = GPTConfig.tiny()  # bf16 serving
-    engine = LLMEngine(EngineConfig(model_config=cfg, device="cpu", seed=3,
-                                    quantization=kind, **BUCKETS),
+    engine = LLMEngine(EngineConfig(model="gpt", model_config=cfg,
+                                    device="cpu", seed=3, quantization=kind,
+                                    **BUCKETS),
                        auto_step=False)
     f32 = gpt_init(dataclasses.replace(cfg, dtype=torch.float32), 3, "cpu")
     want = quantize_params(f32.weights(), gpt_quant_axes(cfg), kind)
