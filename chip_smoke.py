@@ -21,14 +21,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the number of split-K ranges the wrapper launched printed for each case;
    for agreement only, B4/B5 (and their quantized variants) at head dims
    100 and 72 (pools padded to 16-byte rows) and, at small B and G 3,
-   288 and 512 (the column-chunked walk), and B1-B3 at head dims 160
-   (padded to 256), 256, 264 and 512 (column chunks of 256);
+   288 and 512 (the column-chunked walk), B1-B3 at head dims 160
+   (padded to 256), 256, 264 and 512 (column chunks of 256), and B4/B5
+   and their quantized variants at the prefix path's shapes (a one-token
+   chunk at 575, a suffix chunk at 512, decode over shared blocks);
 4. trains GPT-2 125M at full width and depth (bf16 activations, f32
    masters, seeded random weights, one fixed [16, 1025] batch) through the
    port's ``run_gpt_bench``: the loss must stay finite and fall, and each
    flash kernel must launch 12 layers x steps times;
 5. serves 8 requests on GPT-2 125M at full width (bf16, seeded random
-   weights) through ``LLMEngine``, whose decode loop runs at lag 1 from
+   weights) through ``LLMEngine`` (prefix caching off: each pass repeats
+   the same prompts), whose decode loop runs at lag 1 from
    one captured CUDA graph per decode signature, and checks every stream
    (the same in a second pass), the pool, and that every decode step of
    the second pass replayed a graph (the wrappers launching B5 eagerly,
@@ -53,13 +56,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    seq 1024; ``EngineConfig(model="llama")``, ``run_gpt_bench(
    model="llama")``): B1-B3 with the kv heads repeated, B4/B5 and their
    quantized variants at a query-group size of 3 over a pool of 4 kv
-   heads;
-9. prints the kernels' JSON line (a kernel's ``launches``: the sum over
-   the two families' paths, each counted alone, ``launches_by_path``; a
-   paged kernel's on the device in its engine's counted pass, from the
-   trace; ``eager_launches``: its wrapper's count in that pass) and the
-   card's line;
-10. for each family, on its training phase's first weights and batch
+   heads; then times Llama-125M bf16 engines with the prefix cache off
+   and on over prompts drawn anew for each pass (nothing hits): what the
+   default costs on unshared traffic;
+9. serves shared-prefix traffic on Llama-125M, bf16 and then int8
+   (``engine_profile.prefix_workload``; prefix caching and the host KV
+   tier on, 256 blocks of 16): wave A (8 prompts of one 512-token prefix
+   and their own suffixes), wave B (the same: device hits, the 576-token
+   prompts resident whole through copy-on-write), a flood of 12
+   unrelated 700-token prompts (every wave block demoted to the host)
+   and wave C (every hit promoted back); per wave tokens/s, prefill
+   calls, prompt tokens computed and served from the cache, copies,
+   demotes, promotes and demote syncs; wave C's streams must equal wave
+   B's, the first-token logits of the engine's own wave B and wave C
+   prefills those of a ``prefix_caching=False`` engine serving the same
+   prompts (LOGIT_TOL), every copy and promotion its bytes (a counted
+   run, B4/B5 launches from its trace), the prefix counters those of the
+   plain attention backend wave by wave, and the pool whole after
+   ``release_all``; the block moves' ms a call;
+10. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+   the paths, each counted alone, ``launches_by_path``: the two
+   families' engine and training paths and the prefix path; a paged
+   kernel's on the device in its engine's counted pass, from the trace;
+   ``eager_launches``: its wrapper's count in that pass) and the card's
+   line;
+11. for each family, on its training phase's first weights and batch
    ([16, 1025]), holds the loss and every gradient through the CUDA
    kernels against the plain backend's (LOSS_TOL, GRAD_REL_TOL); then
    ``{"ok": true, "device": ...}`` last.
@@ -68,13 +89,15 @@ Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
 after one comparison per kernel (a first check of a new kernel);
 ``--profile`` adds B4's device time by split count and L2 state beside
-SDPA's, a profiled train step of each family and profiled warm
+SDPA's, a profiled train step of each family, profiled warm
 passes of the bf16 and the int8 engines' requests (device time by kernel,
-step times, B4's device time per call, host ops by CPU time).
+step times, B4's device time per call, host ops by CPU time), and for
+the prefix phase each wave's host time by step kind and by block move.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1031,6 +1054,569 @@ def graph_phase(torch, engine) -> None:
     del graph, out, want
 
 
+def unshared_cost_phase(torch, card) -> None:
+    """What the default ``prefix_caching=True`` costs on traffic that never
+    hits (a digest per full block, ``register_prefix`` after each chunk,
+    ``prepare_write`` before each write): Llama-125M bf16, the engine
+    workload's geometry, two engines (cache off, cache on) warmed alike,
+    then passes alternating off, on, each pair over prompts drawn anew
+    (``engine_profile.workload`` at seed 100 + i), so nothing can hit.
+    Host clock; the cache-on engine must report no hit and no copy."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    engines = {on: ep.make_engine(None, "llama", prefix_caching=on)
+               for on in (False, True)}
+    engines[True].executor.model.load_weights(
+        engines[False].executor.model.weights())
+    vocab = engines[False].model_cfg.vocab_size
+    for eng in engines.values():
+        ep.serve(torch, eng, *ep.workload(vocab))  # captures the graphs
+    passes = {False: [], True: []}
+    for i in range(4):
+        work = ep.workload(vocab, seed=100 + i)
+        for on, eng in engines.items():
+            run = ep.serve(torch, eng, *work)
+            passes[on].append({
+                "tokens_per_s": sum(map(len, run["outs"])) / run["seconds"],
+                "seconds": run["seconds"],
+                "prefill_ms": 1e3 * statistics.mean(run["steps"]["prefill"]),
+                "decode_ms": 1e3 * statistics.mean(run["steps"]["decode"]),
+                "outs": run["outs"]})
+    st = engines[True].stats()
+    if st["prefix_hit_tokens"] or st["cow_blocks"]:
+        raise AssertionError(f"unshared traffic hit the cache: {st}")
+    same = sum(a["outs"] == b["outs"]
+               for a, b in zip(passes[False], passes[True]))
+    for on, runs in passes.items():
+        log(f"unshared[llama bf16, prefix_caching={on}]: "
+            + "; ".join(f"{r['tokens_per_s']:.1f} tokens/s ({r['seconds']:.4f}"
+                        f" s), prefill {r['prefill_ms']:.2f} ms, decode "
+                        f"{r['decode_ms']:.3f} ms" for r in runs)
+            + f"; {card}")
+    med = {on: statistics.median(r["seconds"] for r in runs)
+           for on, runs in passes.items()}
+    log(f"unshared: median pass {med[False]:.4f} s (cache off) / "
+        f"{med[True]:.4f} s (on) = {med[True] / med[False]:.4f}; streams "
+        f"equal in {same} of {len(passes[True])} pass pairs; "
+        f"cache-on engine's prefix_cached_blocks {st['prefix_cached_blocks']}"
+        f", evicted {st['prefix_evicted_blocks']}")
+    del engines
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ prefix phase
+
+PREFIX_KINDS = (None, "int8")
+WAVES = ("A", "B", "flood", "C")
+PREFIX_COUNTERS = ("prefix_hit_tokens", "prefix_hit_blocks",
+                   "prefix_cached_blocks", "prefix_evicted_blocks",
+                   "host_cache_blocks", "kv_demoted_blocks",
+                   "kv_promoted_blocks", "cow_blocks", "prefill_tokens_total")
+
+
+def side_bytes(side) -> bytes:
+    """A host payload's bytes, a quantized one's scale plane after its data
+    (``ops.kv_cache.block_planes``)."""
+    from ray_tpu_torch.ops.kv_cache import block_planes
+
+    return b"".join(p.tobytes() for p in block_planes(side))
+
+
+def prefix_engine(kind, **overrides):
+    """Llama-125M on the prefix workload's engine (``engine_profile.
+    PREFIX_ENGINE``), its host tier sized to hold every full prompt block
+    of the traffic, in RTKV record bytes."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.models.families import family, kv_heads
+    from ray_tpu_torch.serve.llm.kv_transfer import KVLayout
+
+    cfg = family("llama").full()
+    work = ep.prefix_workload(cfg.vocab_size)
+    layout = KVLayout(
+        n_layer=cfg.n_layer, block_size=ep.PREFIX_ENGINE["block_size"],
+        n_kv_head=kv_heads(cfg), head_dim=cfg.head_dim,
+        dtype={None: "bfloat16", "int8": "int8"}[kind], quantization=kind)
+    blocks = ep.distinct_blocks(work["wave"][0] + work["flood"][0],
+                                layout.block_size)
+    engine = ep.make_prefix_engine(
+        kind, host_cache_bytes=blocks * layout.record_bytes, **overrides)
+    if engine.cache.layout != layout:
+        raise AssertionError(f"{engine.cache.layout} != {layout}")
+    return engine, work, {"blocks": blocks, "record_bytes": layout.record_bytes,
+                          "host_cache_bytes": blocks * layout.record_bytes}
+
+
+def prefix_waves(torch, engine, work, after_wave=None, wave_context=None,
+                 timed_moves=True) -> dict:
+    """Wave A, wave B, the flood and wave C through ``engine_profile.
+    serve``; per wave its streams, its time and the engine's counters'
+    moves (prefill calls, decode steps, prompt tokens computed and served
+    from the cache, copies, demotes and promotes, demote syncs), with
+    ``timed_moves`` on a card each block move's calls (those that move a
+    block) and ms a call (CUDA events recorded around the call), and the
+    prefix counters of ``stats()`` at its end, less their values at the
+    start of the run. Each wave runs inside ``wave_context()`` when it is
+    given; ``after_wave`` is called after each wave."""
+    import contextlib
+
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.ops.kv_cache import planes_nbytes
+
+    ex = engine.executor
+    moves = ("copy_blocks", "land_blocks", "export_blocks")
+    saved = {n: getattr(ex, n) for n in moves}
+    events = {n: [] for n in moves}
+
+    def evented(name, fn):
+        def run(*args, **kw):
+            if not len(args[0]):  # an empty list of blocks moves nothing
+                return fn(*args, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return run
+
+    if timed_moves and engine.device.type == "cuda":
+        for n in moves:
+            setattr(ex, n, evented(n, saved[n]))
+    syncs = {"n": 0, "bytes": 0}
+    demote = engine.cache.demote_fn
+
+    def counted(ids):  # each demote capture is one device-to-host sync
+        k, v = demote(ids)
+        syncs["n"] += 1
+        syncs["bytes"] += planes_nbytes(k, v)
+        return k, v
+
+    engine.cache.demote_fn = counted
+    vocab = engine.model_cfg.vocab_size
+    base = engine.stats()
+    out = {}
+    for name in WAVES:
+        prompts, params = work["flood" if name == "flood" else "wave"]
+        st0, s0 = engine.stats(), dict(syncs)
+        calls0 = (engine.num_prefill_calls, engine.num_decode_steps)
+        with (wave_context or contextlib.nullcontext)():
+            run = ep.serve(torch, engine, prompts, params)
+        st = engine.stats()
+        for o, sp in zip(run["outs"], params):
+            if len(o) != sp.max_new_tokens or not all(0 <= t < vocab
+                                                      for t in o):
+                raise AssertionError(f"wave {name}: bad stream {o}")
+        ntok = sum(map(len, run["outs"]))
+        moved = {k: st[k] - st0[k] for k in (
+            "prefill_tokens_total", "prefix_hit_tokens", "cow_blocks",
+            "kv_demoted_blocks", "kv_promoted_blocks",
+            "prefix_evicted_blocks")}
+        out[name] = {
+            "outs": run["outs"], "seconds": run["seconds"],
+            "tokens_per_s": ntok / run["seconds"],
+            "prefill_calls": engine.num_prefill_calls - calls0[0],
+            "decode_steps": engine.num_decode_steps - calls0[1],
+            "computed": moved["prefill_tokens_total"],
+            "cached": moved["prefix_hit_tokens"],
+            "cow": moved["cow_blocks"], "demoted": moved["kv_demoted_blocks"],
+            "promoted": moved["kv_promoted_blocks"],
+            "evicted": moved["prefix_evicted_blocks"],
+            "demote_syncs": syncs["n"] - s0["n"],
+            "demote_sync_bytes": syncs["bytes"] - s0["bytes"],
+            "counters": {k: st[k] - base[k] for k in PREFIX_COUNTERS},
+            # serve() ended in a synchronize: every event has completed
+            "move_ms": {n: (len(ev), statistics.mean(
+                s.elapsed_time(e) for s, e in ev) if ev else 0.0)
+                for n, ev in events.items()},
+        }
+        for ev in events.values():
+            ev.clear()
+        if after_wave is not None:
+            after_wave()
+    engine.cache.demote_fn = demote
+    for n in moves:
+        setattr(ex, n, saved[n])
+    return out
+
+
+class FirstLogits:
+    """Capture, while active, the first-token logits of ``prompts`` as the
+    engine's own prefill computes them: the model's ``prefill`` is wrapped
+    to keep the logits of each row whose chunk ends its prompt (the row
+    is told by its tokens and its start, so every admission, hit and
+    copy-on-write decision stays the engine's). ``got[i]`` holds the
+    logits of prompt i's last prefill ([V] f32, on the host)."""
+
+    def __init__(self, engine, prompts):
+        self.model, self.prompts, self.got = engine.executor.model, prompts, {}
+
+    def __enter__(self):
+        model, prefill, logits_fn = (self.model, self.model.prefill,
+                                     self.model._logits)
+
+        def hooked(cache_k, cache_v, tokens, lengths, tables, start=None,
+                   sample=None):
+            seen = []
+
+            def keep(h):
+                seen.append(logits_fn(h))
+                return seen[-1]
+
+            model._logits = keep
+            try:
+                out = prefill(cache_k, cache_v, tokens, lengths, tables,
+                              start=start, sample=sample)
+            finally:
+                del model._logits
+            rows = tokens.cpu().numpy()
+            lens = lengths.cpu().numpy()
+            starts = (start.cpu().numpy() if start is not None
+                      else [0] * len(lens))
+            for r, (n, s0) in enumerate(zip(lens, starts)):
+                for i, p in enumerate(self.prompts):
+                    if (len(p) == s0 + n
+                            and list(rows[r, :n]) == list(p[s0:])):
+                        self.got[i] = seen[0][r].float().cpu()
+            return out
+
+        model.prefill = hooked
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.prefill
+
+
+def prefix_checked_moves(engine, checks: dict):
+    """Wrap the engine's block moves with byte checks: a copy-on-write
+    copies its source's bytes, and the source still holds them at the end
+    of the wave (``checks["sources"]`` of those still content-addressed
+    then; the returned function checks them), and a landing leaves each
+    promoted block holding its record's payload, scale planes included."""
+    ex, cache = engine.executor, engine.cache
+    copy, land = ex.copy_blocks, ex.land_blocks
+    pending = []
+
+    def copy_checked(pairs):
+        src = [s for s, _ in pairs]
+        before = ex.export_blocks(src)
+        copy(pairs)
+        after = ex.export_blocks([d for _, d in pairs])
+        for x, y in zip(before, after):
+            if side_bytes(x) != side_bytes(y):
+                raise AssertionError("a copy-on-write did not copy its source")
+        checks["copies"] += len(pairs)
+        pending.append((src, [cache._block_hash.get(b) for b in src],
+                        [side_bytes(x) for x in before]))
+
+    def land_checked(ids, k_new, v_new):
+        land(ids, k_new, v_new)
+        k, v = ex.export_blocks(ids)
+        for got, want in ((k, k_new), (v, v_new)):
+            if side_bytes(got) != side_bytes(want):
+                raise AssertionError("a promoted block differs from its "
+                                     "record's payload")
+        checks["landed"] += len(ids)
+
+    def sources_unchanged():
+        for src, digests, before in pending:
+            if [cache._block_hash.get(b) for b in src] != digests:
+                continue  # evicted within the wave: its bytes moved on
+            if [side_bytes(x) for x in ex.export_blocks(src)] != before:
+                raise AssertionError("a copy-on-write changed its source")
+            checks["sources"] += len(src)
+        pending.clear()
+
+    ex.copy_blocks, ex.land_blocks = copy_checked, land_checked
+    return sources_unchanged
+
+
+def prefix_kernels_phase(torch) -> None:
+    """B5/B5q and B4/B4q at the prefix path's shapes against their plain
+    versions, bf16 q on a bf16, int8 and fp8 pool of Llama-125M's heads
+    (4 kv heads of 64, groups of 3), 16-token blocks: prefill of a
+    one-token chunk at 575 (a 576-token prompt resident whole) beside a
+    200-token suffix at 512, and decode of 8 rows (542-712 tokens) whose
+    tables share the prefix's 32 blocks."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.ops.kv_cache import (
+        paged_attention,
+        paged_prefill_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    Hkv, G, hd, bs, shared = 4, 3, 64, 16, 32
+    k, v = make_pool(torch, gen, torch.float32, 512, bs, Hkv, hd)
+    nxt = [1 + shared]
+
+    def table(length, nb):
+        """The shared prefix's blocks, then private ones."""
+        own = -(-length // bs) - shared
+        row = list(range(1, 1 + shared)) + list(range(nxt[0], nxt[0] + own))
+        nxt[0] += own
+        return row + [0] * (nb - len(row))
+
+    starts, lens, S = [575, 512], [1, 200], 200
+    tables = torch.tensor([table(s + n, 45) for s, n in zip(starts, lens)],
+                          dtype=torch.int32, device="cuda")
+    ar = torch.arange(S, device="cuda")
+    valid = ar[None, :] < torch.tensor(lens, device="cuda")[:, None]
+    pos = torch.where(valid, torch.tensor(starts, device="cuda")[:, None]
+                      + ar[None, :], 0).to(torch.int32)
+    q = torch.randn(2, S, Hkv * G, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lengths = [542, 576, 632, 712] * 2
+    dtables = torch.tensor([table(n, 45) for n in lengths], dtype=torch.int32,
+                           device="cuda")
+    dpos = torch.tensor([n - 1 for n in lengths], dtype=torch.int32,
+                        device="cuda")
+    dq = torch.randn(8, Hkv * G, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    for kind in (None, *QUANT_KINDS):
+        kk, vv = ((k.to(torch.bfloat16), v.to(torch.bfloat16)) if kind is None
+                  else quantize_pool(k, v, kind))
+        tag = f"prefix path [{kind or 'bf16'} pool]"
+        got = pa.paged_prefill_attention_cuda(q, kk, vv, tables, pos)
+        want = paged_prefill_attention(q, kk, vv, tables, pos)
+        torch.cuda.synchronize()
+        compare(f"{tag} B5: 1 token at 575, 200 at 512", got[valid],
+                want[valid], "bfloat16")
+        got = pa.paged_attention_cuda(dq, kk, vv, dtables, dpos)
+        want = paged_attention(dq, kk, vv, dtables, dpos)
+        torch.cuda.synchronize()
+        compare(f"{tag} B4: 8 rows sharing 32 blocks", got, want, "bfloat16")
+
+
+def prefix_breakdown(torch, engine, work, tag) -> None:
+    """One more run of the waves with the host time of each step kind and
+    of each block move measured around its call (host clock; a demote's
+    export and a landing include their waits on the device): where a
+    wave's time goes beside its model steps."""
+    import collections
+
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    ex, tier = engine.executor, engine.cache.host_tier
+    spent = collections.Counter()
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return run
+
+    saved = (ex.export_blocks, ex.land_blocks, ex.copy_blocks, tier.put,
+             tier.get)
+    ex.export_blocks = timed("export (device to host)", ex.export_blocks)
+    ex.land_blocks = timed("land (host to device)", ex.land_blocks)
+    ex.copy_blocks = timed("copy-on-write", ex.copy_blocks)
+    tier.put = timed("record pack (demote)", tier.put)
+    tier.get = timed("record verify (promote)", tier.get)
+    for name in WAVES:
+        spent.clear()
+        prompts, params = work["flood" if name == "flood" else "wave"]
+        run = ep.serve(torch, engine, prompts, params)
+        steps = {k: sum(v) for k, v in run["steps"].items()}
+        log(f"{tag} wave {name} breakdown: {run['seconds']:.3f} s; steps "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+            + "; within them " + ", ".join(
+                f"{k} {v:.4f} s" for k, v in sorted(spent.items())))
+    (ex.export_blocks, ex.land_blocks, ex.copy_blocks, tier.put,
+     tier.get) = saved
+
+
+def prefix_phase(torch, kind, card, profile_host=False) -> dict:
+    """Shared-prefix traffic (``engine_profile.prefix_workload``) on
+    Llama-125M at full width and depth, with the host tier: wave A, wave
+    B (the prefix and the 576-token prompts resident whole: hits and
+    copy-on-write), a flood of unrelated prompts (every wave block
+    demoted), wave C (every hit promoted). On one engine: a warm-up run
+    (the decode graphs captured), ``release_all``, the timed run; wave
+    C's streams against wave B's, each wave prompt's first-token logits
+    against a ``prefix_caching=False`` engine's, the pool whole after
+    ``release_all``, the block moves' times; then the counted run (launch
+    counts reset just before it, B4/B5 launches on the device read from
+    a ``torch.profiler`` trace of each wave, each copy and promotion
+    checked byte for byte), whose streams and counters must equal the timed run's. Last,
+    a run on the plain attention backend, whose prefix counters must
+    equal the CUDA run's wave by wave."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    tag = f"prefix[llama {kind or 'bf16'}]"
+    suffix = f"_{kind}" if kind else ""
+    decode, prefill = "paged_decode" + suffix, "paged_prefill" + suffix
+    engine, work, tier = prefix_engine(kind)
+    cfg, cache, fns = engine.model_cfg, engine.cache, engine.fns
+
+    def whole():
+        cache.release_all()
+        if (cache.free_blocks != cache.cfg.usable_blocks
+                or cache.reserved_blocks or cache.cached_blocks
+                or cache.host_tier.blocks):
+            raise AssertionError(f"{tag}: pool not whole after release_all: "
+                                 f"{cache.debug_snapshot()}")
+
+    log(f"{tag}: host tier {tier['host_cache_bytes']} B = {tier['blocks']} "
+        f"blocks x {tier['record_bytes']} B a record; {card}")
+    t0 = time.perf_counter()
+    prefix_waves(torch, engine, work)
+    whole()
+    log(f"{tag}: warm-up run {time.perf_counter() - t0:.3f} s, "
+        f"{fns.graphs_captured} decode graphs captured")
+    waves = prefix_waves(torch, engine, work)
+    for name in WAVES:
+        w = waves[name]
+        log(f"{tag} wave {name}: {w['tokens_per_s']:.1f} tokens/s "
+            f"({w['seconds']:.3f} s); {w['prefill_calls']} prefill calls, "
+            f"{w['decode_steps']} decode steps; prompt tokens computed "
+            f"{w['computed']}, served from the cache {w['cached']}; "
+            f"copy-on-write {w['cow']}, demoted {w['demoted']}, promoted "
+            f"{w['promoted']}, evicted {w['evicted']}; demote syncs "
+            f"{w['demote_syncs']} ({w['demote_sync_bytes']} B); block moves "
+            + ", ".join(f"{n} {c} calls, {ms:.4f} ms a call"
+                        for n, (c, ms) in w["move_ms"].items())
+            + f"; {card}")
+    a, b, fl, c = (waves[n] for n in WAVES)
+    if c["outs"] != b["outs"]:
+        raise AssertionError(f"{tag}: wave C's streams differ from wave B's")
+    # waves B and C compute only the tokens past each prompt's last full
+    # block (one token for a prompt resident whole); C promotes every
+    # wave block once, after the flood demoted them all
+    bs = cache.cfg.block_size
+    tails = sum(len(p) % bs or 1 for p in work["wave"][0])
+    wave_blocks = ep.distinct_blocks(work["wave"][0], bs)
+    if (b["computed"], c["computed"]) != (tails, tails) or (
+            b["promoted"], c["promoted"]) != (0, wave_blocks) or (
+            c["cached"] != b["cached"] or fl["demoted"] < wave_blocks
+            or b["cow"] == 0):
+        counts = {n: {k: x for k, x in w.items() if k != "outs"}
+                  for n, w in waves.items()}
+        raise AssertionError(
+            f"{tag}: hits, copies, demotes or promotes not as the traffic "
+            f"makes them (tails {tails}, wave blocks {wave_blocks}): "
+            f"{counts}")
+
+    # first-token logits: the engine's wave B and wave C prefills (device
+    # hits and host promotions, the counted run's, hooked below) against
+    # a prefix_caching=False engine serving the same prompts
+    wave_prompts = work["wave"][0]
+    cold = ep.make_prefix_engine(kind, prefix_caching=False)
+    cold.executor.model.load_weights(engine.executor.model.weights())
+    with FirstLogits(cold, wave_prompts) as cold_logits:
+        cold_run = ep.serve(torch, cold, *work["wave"])
+    del cold
+    torch.cuda.empty_cache()
+
+    # the block moves, timed on the idle pool (they write garbage into
+    # free blocks, which the next run writes again before reading)
+    whole()
+    ex, timer = engine.executor, Timer(torch)
+    ids = list(range(1, 33))
+    k, v = ex.export_blocks(ids)
+    ms = {"copy_blocks[1 pair]": timer(lambda: ex.copy_blocks([(1, 2)])),
+          "land_blocks[32 blocks]": timer(lambda: ex.land_blocks(ids, k, v)),
+          "export_blocks[1 block]": timer(lambda: ex.export_blocks([1])),
+          "export_blocks[32 blocks]": timer(lambda: ex.export_blocks(ids))}
+    del k, v
+    log(f"{tag}: block moves, ms a call (CUDA events, median of 20): "
+        + ", ".join(f"{n} {t:.4f}" for n, t in ms.items()) + f"; {card}")
+
+    # the counted run: launches from the trace, every move checked
+    checks = {"copies": 0, "sources": 0, "landed": 0}
+    copy, land = ex.copy_blocks, ex.land_blocks
+    sources_unchanged = prefix_checked_moves(engine, checks)
+    graphs = fns.graphs_captured
+    profs = []
+
+    hooks = {n: FirstLogits(engine, wave_prompts) for n in WAVES}
+    order = iter(WAVES)
+
+    @contextlib.contextmanager
+    def wave_context():  # one trace a wave keeps each trace small
+        with hooks[next(order)], profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            yield
+        profs.append(prof)
+
+    pa.reset_launches()
+    counted = prefix_waves(torch, engine, work, sources_unchanged,
+                           wave_context, timed_moves=False)
+    eager = dict(pa.LAUNCHES)
+    launches = dict.fromkeys(pa.LAUNCHES, 0)
+    for prof in profs:
+        for name, n in ep.paged_launches(prof).items():
+            launches[name] += n
+    calls = [sum(w[k] for w in counted.values())
+             for k in ("prefill_calls", "decode_steps")]
+    want = dict.fromkeys(launches, 0)
+    want[prefill], want[decode] = (cfg.n_layer * n for n in calls)
+    log(f"{tag}: counted run: {calls[0]} prefill calls, {calls[1]} decode "
+        f"steps, {fns.graphs_captured - graphs} new graphs; launches on "
+        f"the device (trace) {launches} (expected {want}); eager wrapper "
+        f"launches {eager}; checked byte for byte: {checks['copies']} "
+        f"copies, {checks['sources']} of their sources at the wave's end, "
+        f"{checks['landed']} promoted blocks")
+    if launches != want or min(calls) == 0 or fns.graphs_captured != graphs:
+        raise AssertionError(f"{tag}: launch counts {launches} != {want}")
+    if not min(checks.values()):
+        raise AssertionError(f"{tag}: a kind of move went unchecked: "
+                             f"{checks}")
+    for name in WAVES:
+        if (counted[name]["outs"], counted[name]["counters"]) != (
+                waves[name]["outs"], waves[name]["counters"]):
+            raise AssertionError(f"{tag}: wave {name}'s streams or counters "
+                                 "differ between two runs")
+    diffs = {}
+    for name in ("B", "C"):
+        got = hooks[name].got
+        if sorted(got) != list(range(len(wave_prompts))) or sorted(
+                cold_logits.got) != sorted(got):
+            raise AssertionError(f"{tag}: first-token logits of wave {name} "
+                                 f"captured for {sorted(got)}, of the cold "
+                                 f"engine for {sorted(cold_logits.got)}")
+        diffs[name] = [(got[i] - cold_logits.got[i]).abs().max().item()
+                       for i in sorted(got)]
+    same = {n: sum(a == b for a, b in zip(counted[n]["outs"],
+                                          cold_run["outs"]))
+            for n in ("B", "C")}
+    log(f"{tag}: first-token logits of the engine's prefills against a "
+        f"prefix_caching=False engine's, max_abs_diff by request: "
+        + "; ".join(f"wave {n} {[f'{d:.3e}' for d in ds]}"
+                    for n, ds in diffs.items())
+        + f" (tol {LOGIT_TOL}); streams equal to the cold engine's: "
+        f"{same} of {len(wave_prompts)}")
+    if not max(max(ds) for ds in diffs.values()) <= LOGIT_TOL:
+        raise AssertionError(f"{tag}: first-token logits differ: {diffs}")
+    whole()
+    if profile_host:
+        ex.copy_blocks, ex.land_blocks = copy, land
+        prefix_breakdown(torch, engine, work, tag)
+        whole()
+    del engine, ex, cache, fns
+    torch.cuda.empty_cache()
+
+    # the plain attention backend: the same counters wave by wave
+    engine, work, _ = prefix_engine(kind, attention_backend="torch")
+    plain = prefix_waves(torch, engine, work)
+    for name in WAVES:
+        if plain[name]["counters"] != waves[name]["counters"]:
+            raise AssertionError(
+                f"{tag}: wave {name} counters {waves[name]['counters']} != "
+                f"the plain backend's {plain[name]['counters']}")
+    log(f"{tag}: prefix counters equal the plain backend's in every wave: "
+        f"{ {n: waves[n]['counters'] for n in WAVES} }")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eager": eager, "waves": waves,
+            "block_ms": ms, "logit_diffs": diffs}
+
+
 def profile_phase(torch, eng) -> None:
     """One more warm pass over the same requests under torch.profiler:
     device time by kernel, the device's busy share of the wall time, the
@@ -1177,6 +1763,7 @@ def main() -> int:
     rows = kernels_phase(torch, args.quick)
     for kind in QUANT_KINDS:
         rows.update(kernels_phase(torch, args.quick, kind))
+    prefix_kernels_phase(torch)
     frows = flash_phase(torch, args.quick)
     if args.quick:
         log(card)
@@ -1219,6 +1806,19 @@ def main() -> int:
                     decode_sweep(torch)
                 profile_phase(torch, eng)
             del eng
+    unshared_cost_phase(torch, card)
+    # the prefix path: Llama-125M on shared-prefix traffic, its counts
+    # reset just before each of its counted runs and read just after
+    paths = (*FAMILIES, "llama_prefix")
+    launches["llama_prefix"], eager["llama_prefix"] = {}, {}
+    for kind in PREFIX_KINDS:
+        torch.cuda.empty_cache()
+        pre = prefix_phase(torch, kind, card, args.profile)
+        suffix = f"_{kind}" if kind else ""
+        for base in ("paged_decode", "paged_prefill"):
+            launches["llama_prefix"][base + suffix] = pre["launches"][
+                base + suffix]
+            eager["llama_prefix"][base + suffix] = pre["eager"][base + suffix]
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")
@@ -1232,9 +1832,9 @@ def main() -> int:
             "source": f"ray_tpu_torch/csrc/{base}.cu",
             "replaces": "ray_tpu/ops/paged_attention.py:"
                         + ("104" if base == "paged_decode" else "322"),
-            "launches": sum(launches[m][name] for m in FAMILIES),
-            "launches_by_path": {m: launches[m][name] for m in FAMILIES},
-            "eager_launches": {m: eager[m][name] for m in FAMILIES},
+            "launches": sum(launches[m].get(name, 0) for m in paths),
+            "launches_by_path": {m: launches[m].get(name, 0) for m in paths},
+            "eager_launches": {m: eager[m].get(name, 0) for m in paths},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

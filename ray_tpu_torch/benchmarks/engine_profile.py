@@ -21,6 +21,14 @@ line with
   events), every CUDA runtime call by name, and the device kernels
   (copies included) per step.
 
+The engine runs with ``prefix_caching=False`` where the version has the
+knob: a pass repeats the same prompts, and with the cache on every pass
+after the first would be a full prefix hit (what the cache costs on
+traffic that never hits is measured by ``chip_smoke.py``'s
+``unshared_cost_phase``, on prompts drawn anew for each pass). Shared-prefix traffic is its
+own named workload, ``prefix_workload`` (the prefix phase of
+``chip_smoke.py``); this script adds no measurement of it.
+
 It drives the engine through ``submit`` / ``step`` and reads its public
 ``stats()`` and ``last_step_kind`` only, so it measures any version of
 the package: ``python3
@@ -31,6 +39,7 @@ file); compare two versions inside one call on one card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -39,9 +48,16 @@ import sys
 import time
 
 ENGINE = dict(block_size=16, num_blocks=1024, max_batch_size=8,
-              prefill_chunk_tokens=256, seed=0)
+              prefill_chunk_tokens=256, seed=0, prefix_caching=False)
 PROMPT_LENGTHS = (30, 64, 120, 200, 333, 512, 700, 900)
 NEW_TOKENS = 32
+# shared-prefix traffic (prefix_workload): one 512-token prefix and a
+# suffix of each request's own; 512 + 64 = 576 is 36 whole blocks
+PREFIX_ENGINE = dict(block_size=16, num_blocks=256, max_batch_size=8,
+                     prefill_chunk_tokens=256, seed=0)
+SHARED_PREFIX = 512
+SUFFIX_LENGTHS = (30, 64, 120, 200, 30, 64, 120, 200)
+FLOOD_PROMPTS, FLOOD_LENGTH = 12, 700
 # the host launch API calls counted per decode step (CUPTI runtime names
 # may carry a version suffix)
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
@@ -51,14 +67,14 @@ _PAGED_KERNEL = re.compile(r"(paged_decode|paged_prefill)(?:_mma)?_kernel<([^>]*
 _POOL_SUFFIX = {"signed char": "_int8", "__nv_fp8_e4m3": "_fp8"}
 
 
-def workload(vocab_size: int, new_tokens: int = NEW_TOKENS):
-    """The 8 prompts (seeded) and their sampling params: greedy, but
-    request 3 samples (temperature 0.8, top-p 0.9, seed 7)."""
+def workload(vocab_size: int, new_tokens: int = NEW_TOKENS, seed: int = 0):
+    """The 8 prompts (drawn from ``seed``) and their sampling params:
+    greedy, but request 3 samples (temperature 0.8, top-p 0.9, seed 7)."""
     import numpy as np
 
     from ray_tpu_torch.serve.llm import SamplingParams
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, vocab_size, n).tolist()
                for n in PROMPT_LENGTHS]
     params = [SamplingParams(max_new_tokens=new_tokens) for _ in prompts]
@@ -67,15 +83,78 @@ def workload(vocab_size: int, new_tokens: int = NEW_TOKENS):
     return prompts, params
 
 
-def make_engine(quant=None, model="gpt"):
+def prefix_workload(vocab_size: int, new_tokens: int = NEW_TOKENS) -> dict:
+    """Shared-prefix traffic, seeded: ``wave``, 8 prompts of one shared
+    512-token prefix and a suffix of their own of ``SUFFIX_LENGTHS``
+    tokens, request 3 sampled (temperature 0.8, top-p 0.9, seed 7), the
+    rest greedy; ``flood``, 12 unrelated 700-token prompts, greedy. Each
+    is (prompts, params). A run sends wave, wave, flood, wave: the second
+    wave hits the prefix on the device (its 576-token prompts whole), the
+    flood evicts it (into the host tier when there is one), and the last
+    wave hits it again (promoted from the host)."""
+    import numpy as np
+
+    from ray_tpu_torch.serve.llm import SamplingParams
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, vocab_size, SHARED_PREFIX).tolist()
+    wave = [prefix + rng.integers(0, vocab_size, n).tolist()
+            for n in SUFFIX_LENGTHS]
+    flood = [rng.integers(0, vocab_size, FLOOD_LENGTH).tolist()
+             for _ in range(FLOOD_PROMPTS)]
+    greedy = SamplingParams(max_new_tokens=new_tokens)
+    params = [greedy] * len(wave)
+    params[3] = SamplingParams(max_new_tokens=new_tokens, temperature=0.8,
+                               top_p=0.9, seed=7)
+    return {"wave": (wave, params), "flood": (flood, [greedy] * len(flood))}
+
+
+def distinct_blocks(prompts, block_size: int) -> int:
+    """Full prompt blocks of distinct content (chain) among ``prompts``:
+    the most blocks a run of them can demote."""
+    from ray_tpu_torch.serve.llm.kv_cache import _block_key
+
+    seen = set()
+    for p in prompts:
+        digest = b""
+        for i in range(len(p) // block_size):
+            digest = _block_key(digest, p[i * block_size:(i + 1) * block_size])
+            seen.add(digest)
+    return len(seen)
+
+
+def _config(**kw):
+    """An ``EngineConfig`` of the knobs this version of the package has."""
+    from ray_tpu_torch.serve.llm import EngineConfig
+
+    names = {f.name for f in dataclasses.fields(EngineConfig)}
+    return EngineConfig(**{k: v for k, v in kw.items() if k in names})
+
+
+def make_engine(quant=None, model="gpt", **overrides):
     """The engine of family ``model`` at full width (``Family.full``):
-    GPT-2 125M, or Llama-125M."""
+    GPT-2 125M, or Llama-125M; ``overrides`` set other knobs
+    (``prefix_caching``)."""
+    from ray_tpu_torch.models.families import family
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = family(model).full()
+    return LLMEngine(_config(model=model, model_config=cfg,
+                             quantization=quant, **{**ENGINE, **overrides}),
+                     auto_step=False)
+
+
+def make_prefix_engine(quant=None, model="llama", **overrides):
+    """The engine of ``prefix_workload`` (``PREFIX_ENGINE``, prefix
+    caching on) at full width; ``overrides`` set other knobs
+    (``host_cache_bytes``, ``attention_backend``)."""
     from ray_tpu_torch.models.families import family
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
     cfg = family(model).full()
     return LLMEngine(EngineConfig(model=model, model_config=cfg,
-                                  quantization=quant, **ENGINE),
+                                  quantization=quant,
+                                  **{**PREFIX_ENGINE, **overrides}),
                      auto_step=False)
 
 

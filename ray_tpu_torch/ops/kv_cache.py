@@ -22,6 +22,13 @@ data and scale at the same (block, slot); ``gather_kv`` dequantizes the
 gathered context to f32, so the two attention functions below are also
 the plain versions of the quantized kernels.
 
+``copy_blocks`` (the prefix cache's copy-on-write) and ``land_blocks``
+(host-tier promotions, adopted handoffs) move whole blocks of every layer
+in place, data and scale planes alike; they are XLA scatters in the JAX
+package, not kernels. In place matters beyond memory: the decode CUDA
+graphs (``serve/llm/decode.py``) captured the pool's addresses, so a
+rebound pool would leave every later replay reading a stale one.
+
 The attention functions here are the PLAIN versions of the two CUDA
 kernels (``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``): the CPU path
 of the dispatchers in ``ops/paged_attention.py``, and the yardstick the
@@ -124,6 +131,49 @@ def scatter_kv(k_layer, v_layer, k, v, slots):
     k_layer[blk, slot] = k.to(k_layer.dtype)
     v_layer[blk, slot] = v.to(v_layer.dtype)
     return k_layer, v_layer
+
+
+def block_planes(side) -> list:
+    """The planes of one pool side, or of a payload shaped like one
+    (tensors, or numpy arrays on the host): the data, as bytes when it
+    is an fp8 tensor, then a quantized side's scale plane."""
+    if isinstance(side, QuantizedKV):
+        data = side.data
+        if data.dtype == torch.float8_e4m3fn:
+            data = data.view(torch.uint8)
+        return [data, side.scale]
+    return [side]
+
+
+def planes_nbytes(*sides) -> int:
+    """The bytes of every plane of ``sides`` (``block_planes``)."""
+    return sum(a.nbytes for side in sides for a in block_planes(side))
+
+
+def copy_blocks(cache_k, cache_v, src: torch.Tensor, dst: torch.Tensor):
+    """Clone blocks ``src`` onto ``dst`` ([P] int64, on the pool's device)
+    in every layer, in place: data and scale planes in the same call.
+    Pairs padded with (0, 0) copy the garbage block onto itself."""
+    for side in (cache_k, cache_v):
+        for a in block_planes(side):
+            a.index_copy_(1, dst, a.index_select(1, src))
+    return cache_k, cache_v
+
+
+def land_blocks(cache_k, cache_v, blocks: torch.Tensor, k_new, v_new):
+    """Write payloads ``k_new``, ``v_new`` ([n_layer, P, block_size,
+    n_kv_head, head_dim], or ``QuantizedKV`` with their scale planes, on
+    the pool's device) into blocks ``blocks`` ([P] int64) of every layer,
+    in place. A data plane narrower than the pool's head dim is
+    zero-padded to it; values of another dtype are cast to the pool's,
+    as the JAX ``astype``."""
+    for side, new in ((cache_k, k_new), (cache_v, v_new)):
+        planes = zip(block_planes(side), block_planes(new))
+        for i, (a, n) in enumerate(planes):
+            if i == 0:
+                n = pad_head(n, a.shape[-1])
+            a.index_copy_(1, blocks, n.to(a.dtype))
+    return cache_k, cache_v
 
 
 def _dequant_rows(layer: QuantizedKV, idx: torch.Tensor) -> torch.Tensor:

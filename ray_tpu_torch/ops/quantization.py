@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 QUANT_KINDS = ("int8", "fp8")
@@ -126,6 +127,18 @@ class QuantizedKV:
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (self.data, self.scale))
+
+
+def stack_blocks(blocks: list, axis: int = 1):
+    """``np.stack`` over per-block payloads, plain arrays or
+    ``QuantizedKV`` records of numpy leaves (data and scale planes
+    stacked alike): the host-side landing paths stack them into one
+    operand."""
+    first = blocks[0]
+    if isinstance(first, QuantizedKV):
+        return QuantizedKV(np.stack([b.data for b in blocks], axis=axis),
+                           np.stack([b.scale for b in blocks], axis=axis))
+    return np.stack(blocks, axis=axis)
 
 
 def _scale(amax: torch.Tensor, kind: str) -> torch.Tensor:

@@ -40,10 +40,29 @@ family's kv heads (``n_kv_head`` for Llama's grouped-query attention).
 ``EngineConfig.quantization`` ("int8" | "fp8") serves from quantized
 weights and a quantized pool (``ops/quantization.py``).
 
-What this slice leaves out of the JAX engine: prefix caching and
-copy-on-write, the host KV tier, preemption, speculative decoding,
-structured output (so no batch forces the lag to collapse), stop
-sequences, deadlines, admission-queue limits, sharded executors,
+Prefix caching (``EngineConfig.prefix_caching``, on by default as in the
+JAX engine): admission maps the resident full blocks of a prompt into
+its table (``kv_cache.assign_prefix``) and prefill computes only the
+rest, at true positions on the chunk path; a prompt that is resident
+whole still recomputes its last token (a one-token chunk, through a
+copy-on-write of the shared tail block) for its first token's logits.
+Each prefill chunk content-addresses the prompt blocks it completed
+(``register_prefix``); a write into a shared or content-addressed block
+first copies it (``prepare_write``, ``executor.copy_blocks``); finished
+prompt blocks stay cached until the LRU evicts them. With
+``host_cache_bytes`` > 0 an evicted block demotes into a host arena of
+RTKV records (``executor.export_blocks``, a device-to-host sync recorded
+as kind ``"demote"`` in ``debug_dump()``) and a later hit promotes it:
+the staged payloads land in one ``executor.land_blocks`` at the top of
+the next dispatch window, before any copy-on-write. ``export_prefix`` /
+``adopt_prefix`` move a prompt's blocks between engines (also the JAX
+engine's records, f32).
+
+What this slice leaves out of the JAX engine: preemption (and its use of
+``kv_cache.demote_chain``), admission skip-ahead
+(``admission_probe``), the router's prefix digests, speculative
+decoding, structured output (so no batch forces the lag to collapse),
+stop sequences, deadlines, admission-queue limits, sharded executors,
 observability beyond ``stats()`` and the sync records of
 ``debug_dump()``, and graphs for prefill (it runs eagerly). The head of
 the admission queue blocks the requests behind it until it fits.
@@ -63,12 +82,17 @@ import numpy as np
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.exceptions import EngineDiedError, RequestCancelledError
 from ray_tpu_torch.models.families import kv_heads
+from ray_tpu_torch.ops import kv_cache as kv_ops
 from ray_tpu_torch.ops.paged_attention import resolve_backend
-from ray_tpu_torch.ops.quantization import resolve_quantization
+from ray_tpu_torch.ops.quantization import resolve_quantization, stack_blocks
 from ray_tpu_torch.serve._shapes import pad_to_bucket, pow2_buckets
 from ray_tpu_torch.serve.llm.decode import family
 from ray_tpu_torch.serve.llm.executor import SingleDeviceExecutor
-from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
+from ray_tpu_torch.serve.llm.kv_cache import (
+    KVCacheConfig,
+    PagedKVCache,
+    _block_key,
+)
 
 _DONE = object()  # stream sentinel
 
@@ -118,8 +142,13 @@ class EngineConfig:
     eos_id: int | None = None
     seed: int = 0                 # weight init seed (when params not given)
     # prefill one prompt in slices of at most this many tokens, alternating
-    # with decode steps; None -> the whole prompt in one call
+    # with decode steps; None -> the whole uncached rest in one call
     prefill_chunk_tokens: int | None = None
+    prefix_caching: bool = True   # map prompts onto resident KV blocks
+    # host KV tier capacity in bytes (RTKV records), 0 disables it: LRU
+    # eviction demotes full prefix blocks into a host arena and prefix
+    # hits promote them back (kv_cache.HostKVTier)
+    host_cache_bytes: int = 0
     # None -> the model config's own; "auto" | "torch" | "cuda"
     attention_backend: str | None = None
     # None -> the model config's own; "int8" | "fp8": quantized weights and
@@ -253,12 +282,18 @@ class LLMEngine:
                 block_size=cfg.block_size,
                 dtype=model_cfg.dtype,
                 device=device,
+                host_cache_bytes=cfg.host_cache_bytes,
                 quantization=quant,
             )
         )
         self.executor = SingleDeviceExecutor(
             model_cfg, self.cache, params=params, seed=cfg.seed
         )
+        if cfg.host_cache_bytes > 0:
+            # an eviction's capture for the host tier (called under the
+            # lock, from the cache): the executor's export, metered
+            self.cache.demote_fn = lambda ids: self._metered_export(
+                ids, "demote")
         self._batch_buckets = cfg.batch_buckets or pow2_buckets(
             1, cfg.max_batch_size
         )
@@ -287,6 +322,7 @@ class LLMEngine:
         # _scratch_buf)
         self._scratch: dict[tuple, list] = {}
         self._sync_bytes_total = 0
+        self._prefill_tokens_total = 0  # prompt tokens computed by prefill
         # one record per token sync: kind, rows, bytes and lag
         self._flight: deque[dict] = deque(maxlen=_FLIGHT_RECORDS)
         # "prefill" | "decode" | None: drives prefill/decode alternation
@@ -393,12 +429,28 @@ class LLMEngine:
         """The reference engine's ``stats()`` keys that this engine
         fills."""
         with self._lock:
+            cs = self.cache.stats
+            hit = cs.prefix_hit_tokens
+            computed = self._prefill_tokens_total
+            tier = self.cache.host_tier
             return {
                 "waiting": len(self._waiting),
                 "prefilling": len(self._prefilling),
                 "running": len(self._running),
                 "kv_used_blocks": self.cache.used_blocks,
+                "kv_utilization": self.cache.utilization,
+                "kv_high_water_blocks": cs.high_water_blocks,
                 "num_compiled_shapes": self.num_compiled_shapes,
+                "prefix_hit_tokens": hit,
+                "prefix_hit_blocks": cs.prefix_hit_blocks,
+                "prefix_cached_blocks": self.cache.cached_blocks,
+                "prefix_evicted_blocks": cs.prefix_evicted_blocks,
+                "host_cache_blocks": 0 if tier is None else tier.blocks,
+                "kv_demoted_blocks": cs.demoted_blocks,
+                "kv_promoted_blocks": cs.promoted_blocks,
+                "cow_blocks": cs.cow_copies,
+                "prefill_tokens_total": computed,
+                "prefix_hit_rate": hit / max(1, hit + computed),
                 "host_sync_bytes_total": self._sync_bytes_total,
                 "decode_inflight": 1 if self._pending is not None else 0,
                 "failed": self._failed is not None,
@@ -420,6 +472,61 @@ class LLMEngine:
             return {"steps": list(self._flight),
                     "cache": self.cache.debug_snapshot(),
                     "stats": self.stats()}
+
+    # ---------------- prefix export / adoption ----------------
+
+    def export_prefix(self, prompt) -> list:
+        """The resident leading full blocks of ``prompt`` as (chain
+        digest, k, v) host records in chain order (``export_blocks``'s
+        arrays). Under the lock, so no block is evicted between the chain
+        walk and the gather; a partial chain is a shorter, valid export.
+        Call after the prompt's prefill finished."""
+        with self._lock:
+            chain = self.cache.export_chain(prompt)
+            if not chain:
+                return []
+            k, v = self._metered_export([b for _, b in chain], "export")
+        return [(d, k[:, i], v[:, i]) for i, (d, _) in enumerate(chain)]
+
+    def adopt_prefix(self, prompt, records) -> int:
+        """Land another engine's ``export_prefix`` records of ``prompt``:
+        each record's chain digest is checked against THIS engine's
+        digest of the prompt (``kv_cache._block_key``; the records' own
+        claim is never trusted), pool blocks are claimed as cached
+        entries, and the payloads land in one ``land_blocks``, so the
+        next ``submit`` of the prompt is a prefix hit. Already-resident
+        blocks are skipped; a digest mismatch or a full pool stops the
+        walk. -> leading prompt blocks resident afterwards."""
+        bs = self.cache.cfg.block_size
+        with self._lock:
+            # within the unreserved capacity: landing into reserved
+            # headroom would be evicted by the admissions holding it
+            budget = self.cache.spare_blocks
+            digest = b""
+            ids, ks, vs = [], [], []
+            resident = 0
+            for i, (chain, k_blk, v_blk) in enumerate(records):
+                if (i + 1) * bs > len(prompt):
+                    break  # beyond the prompt's full blocks
+                digest = _block_key(digest, prompt[i * bs:(i + 1) * bs])
+                if digest != chain:
+                    break  # not our tokens from position 0
+                if self.cache.has_digest(digest):
+                    resident += 1
+                    continue
+                if len(ids) >= budget:
+                    break
+                b = self.cache.adopt_block(digest)
+                if b is None:
+                    break
+                ids.append(b)
+                ks.append(k_blk)
+                vs.append(v_blk)
+                resident += 1
+            if ids:
+                self.executor.land_blocks(ids, stack_blocks(ks, axis=1),
+                                          stack_blocks(vs, axis=1))
+        return resident
 
     def shutdown(self) -> None:
         """Stop stepping, fail every pending stream and return all KV
@@ -469,16 +576,36 @@ class LLMEngine:
 
     def _try_admit_one_locked(self, req: _Request) -> bool:
         """Reserve the request's worst-case blocks (prompt +
-        max_new_tokens) and give it an empty table; False when they do not
-        fit right now."""
+        max_new_tokens), give it a table and map its resident prompt
+        prefix; False (no state change) when they do not fit right now.
+        A prompt resident whole reserves ONE extra block: its last token
+        is recomputed for the first token's logits, and that write lands
+        in a shared block, so it always makes one copy-on-write."""
+        bs = self.cfg.block_size
+        toks = req.prompt
         need = self.cache.cfg.blocks_for(
-            len(req.prompt) + req.sampling.max_new_tokens
+            len(toks) + req.sampling.max_new_tokens
         )
+        max_hit_blocks = None
+        if self.cfg.prefix_caching:
+            max_hit_blocks = self.cache.peek_prefix(toks)
+            if max_hit_blocks * bs >= len(toks):  # full-chain hit
+                if (need + 1 <= self.cache.cfg.usable_blocks
+                        and self.cache.can_reserve(need + 1)):
+                    need += 1
+                else:  # no room for the copy: recompute the last block
+                    max_hit_blocks -= 1
         if not self.cache.can_reserve(need):
             return False
         self.cache.reserve(need)
         req.reserved_blocks = need
         self.cache.allocate(req.id)
+        if self.cfg.prefix_caching:
+            hit_tokens = self.cache.assign_prefix(req.id, toks,
+                                                  max_blocks=max_hit_blocks)
+            req.drawn_blocks += hit_tokens // bs
+            # a full-chain hit still recomputes the LAST token
+            req.prefill_done = min(hit_tokens, len(toks) - 1)
         return True
 
     def _admit_locked(self) -> int:
@@ -506,12 +633,42 @@ class LLMEngine:
             r.table_key = key
         return r.table_np
 
+    def _apply_promotions_locked(self) -> None:
+        """Land the host-tier promotions staged by admission in ONE
+        ``land_blocks``. Runs at the TOP of a dispatch window, before
+        ``prepare_write``: a copy-on-write of a promoted block must clone
+        landed content, and an eviction in the same window must see the
+        landing acked before it may export the block."""
+        staged = self.cache.take_pending_promotions()
+        if not staged:
+            return
+        ids = [b for b, _, _ in staged]
+        self.executor.land_blocks(
+            ids,
+            stack_blocks([k for _, k, _ in staged], axis=1),
+            stack_blocks([v for _, _, v in staged], axis=1),
+        )
+        self.cache.promotions_landed(ids)
+
+    def _metered_export(self, block_ids: list[int], kind: str):
+        """``executor.export_blocks``, recorded as a device-to-host sync
+        of ``kind`` (it waits for every step queued before it)."""
+        k, v = self.executor.export_blocks(block_ids)
+        nbytes = kv_ops.planes_nbytes(k, v)
+        self._sync_bytes_total += nbytes
+        self._flight.append({"kind": kind, "batch": len(block_ids),
+                             "sync_bytes": int(nbytes),
+                             "sync_lag": 0 if self._pending is None else 1})
+        return k, v
+
     def _prefill_chunk_locked(self) -> None:
         """ONE prefill call for up to ``max_prefill_batch`` admitted
         requests, each contributing its next chunk. Whole cold prompts
-        take the fresh path (start=None); anything mid-prompt takes the
-        chunked path at true positions."""
+        take the fresh path (start=None); anything mid-prompt or
+        prefix-seeded takes the chunked path at true positions."""
         batch = self._prefilling[: self.cfg.max_prefill_batch]
+        # promotions land before capacity and copy-on-write work
+        self._apply_promotions_locked()
         bs = self.cfg.block_size
         cap = self.cfg.prefill_chunk_tokens
         ns = []
@@ -519,10 +676,16 @@ class LLMEngine:
             r.started = True
             remaining = len(r.prompt) - r.prefill_done
             ns.append(remaining if cap is None else min(remaining, cap))
+        pairs = []
         for r, n in zip(batch, ns):
             r.drawn_blocks += self.cache.ensure_capacity(
                 r.id, r.prefill_done + n
             )
+            cow = self.cache.prepare_write(r.id, r.prefill_done,
+                                           r.prefill_done + n)
+            r.drawn_blocks += len(cow)
+            pairs.extend(cow)
+        self.executor.copy_blocks(pairs)
         fresh = all(
             r.prefill_done == 0 and n == len(r.prompt)
             for r, n in zip(batch, ns)
@@ -566,6 +729,9 @@ class LLMEngine:
         self.num_prefill_calls += 1
         for i, (r, n) in enumerate(zip(batch, ns)):
             r.prefill_done += n
+            self._prefill_tokens_total += n
+            if self.cfg.prefix_caching:
+                self.cache.register_prefix(r.id, r.prompt, r.prefill_done)
             if r.prefill_done >= len(r.prompt):
                 # the final chunk's last-token logits give the first token
                 self._prefilling.remove(r)
@@ -602,11 +768,17 @@ class LLMEngine:
             batch = eligible()
         if not batch:
             return  # a drain step: the reconcile above retired the lag
+        self._apply_promotions_locked()
+        pairs = []
         for r in batch:
             # the effective length counts the in-flight token: this
             # dispatch writes its K/V at position eff - 1
             eff = r.total_len + r.inflight
             r.drawn_blocks += self.cache.ensure_capacity(r.id, eff)
+            cow = self.cache.prepare_write(r.id, eff - 1, eff)
+            r.drawn_blocks += len(cow)
+            pairs.extend(cow)
+        self.executor.copy_blocks(pairs)
         B = pad_to_bucket(len(batch), self._batch_buckets)
         ctx = pad_to_bucket(
             max(max(r.total_len + r.inflight,

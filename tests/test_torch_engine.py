@@ -101,7 +101,7 @@ def test_batched_equals_solo_and_pool_whole(weights):
     solo = [_run(engine, [r])[0] for r in requests]
     assert batched == solo
     c = engine.cache
-    assert c.free_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
+    assert c.available_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
 
 
 def test_cancel_returns_blocks(weights):
@@ -123,7 +123,7 @@ def test_cancel_returns_blocks(weights):
     waiting = engine.submit(p0, max_new_tokens=4)
     assert engine.cancel(waiting.request_id)  # cancelled before admission
     c = engine.cache
-    assert c.free_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
+    assert c.available_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
     engine.shutdown()
 
 
@@ -139,7 +139,7 @@ def test_auto_step_serves_and_shuts_down(weights):
             _port_engine(weights), [(prompt, {})], max_new_tokens=5)[0]
     finally:
         engine.shutdown()
-    assert engine.cache.free_blocks == engine.cache.cfg.usable_blocks
+    assert engine.cache.available_blocks == engine.cache.cfg.usable_blocks
 
 
 def test_submit_and_sampling_validation(weights):

@@ -1059,16 +1059,25 @@ def test_two_lag1_steps_feed_on_the_device(cuda, kind):
     assert ex.fns.replays == 2 and ex.fns.graphs_captured == 1
 
 
-def test_engine_decode_steps_make_no_host_sync(cuda):
+@pytest.mark.parametrize("prefix_caching", [False, True])
+def test_engine_decode_steps_make_no_host_sync(cuda, prefix_caching):
     """A warm engine pass runs every decode step from a captured graph,
     with no host sync inside a dispatch (``set_sync_debug_mode("error")``
-    around each), and gives the first pass's streams."""
+    around each), and gives the first pass's streams. With prefix caching
+    on (the default) the second pass hits the first's full prompt blocks
+    (2 of [5] * 40, 5 of [7] * 90) and prefills only their suffixes at
+    true starts; its streams still equal the cold pass's, since each
+    row's attention (B5) and every matmul row is computed alone, so its
+    values do not depend on the chunk around it. A hit block is freed
+    without being allocated in that pass, so ``freed_total`` exceeds
+    ``allocated_total`` by the hits, as in the JAX cache."""
     from ray_tpu_torch.models.gpt import GPTConfig
     from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
 
     cfg = GPTConfig(vocab_size=512, max_seq_len=256, n_layer=2, n_head=4,
                     d_model=256, d_mlp=1024)
-    eng = LLMEngine(EngineConfig(model="gpt", model_config=cfg, num_blocks=128),
+    eng = LLMEngine(EngineConfig(model="gpt", model_config=cfg, num_blocks=128,
+                                 prefix_caching=prefix_caching),
                     auto_step=False)
     reqs = [([1, 2, 3], {}), ([5] * 40, {"temperature": 0.9, "seed": 3}),
             ([7] * 90, {})]
@@ -1093,9 +1102,14 @@ def test_engine_decode_steps_make_no_host_sync(cuda):
 
     eng.executor.decode_step = strict
     assert run() == first
+    hits = 7 if prefix_caching else 0
+    st = eng.stats()
+    assert st["prefix_hit_blocks"] == hits and st["cow_blocks"] == 0
     assert eng.fns.graphs_captured == graphs  # nothing captured again
     assert eng.fns.replays - replays == eng.num_decode_steps - steps > 0
     assert any(r["sync_lag"] == 1 for r in eng.debug_dump()["steps"])
-    snap = eng.cache.debug_snapshot()
-    assert snap["used_blocks"] == 0 and snap["freed_total"] == snap[
-        "allocated_total"]
+    c = eng.cache
+    assert c.used_blocks == 0 and c.reserved_blocks == 0
+    assert c.available_blocks == c.cfg.usable_blocks
+    snap = c.debug_snapshot()
+    assert snap["freed_total"] == snap["allocated_total"] + hits

@@ -90,7 +90,7 @@ def test_llama_streams_match_jax_engine(groups, kind):
     assert all(len(s) == 8 for s in want)
     c = engine.cache
     assert c.cfg.n_kv_head == tcfg.n_kv_head
-    assert c.free_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
+    assert c.available_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
     snap = c.debug_snapshot()
     assert snap["freed_total"] == snap["allocated_total"]
 

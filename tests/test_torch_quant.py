@@ -407,7 +407,7 @@ def test_quantized_engine_streams_match_jax_engine(weights, kind):
         assert engine.model_cfg.quantization == kind
         assert _run(engine, requests) == want
         c = engine.cache
-        assert c.free_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
+        assert c.available_blocks == c.cfg.usable_blocks and c.reserved_blocks == 0
         n = tcfg.n_layer * BUCKETS["num_blocks"] * BUCKETS["block_size"] \
             * tcfg.n_head
         assert c.nbytes() == 2 * n * (tcfg.head_dim + 4)
