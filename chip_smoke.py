@@ -74,13 +74,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    run, B4/B5 launches from its trace), the prefix counters those of the
    plain attention backend wave by wave, and the pool whole after
    ``release_all``; the block moves' ms a call;
-10. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+10. runs speculative decoding on Llama-125M (``speculative_k`` 4, the
+   n-gram drafter, ``engine_profile.spec_workload``: 8 prompts of a
+   seeded motif repeated to 200-800 tokens, 64 new tokens, one sampled;
+   the engine phases' geometry), bf16 then int8: a spec-off and a spec-on
+   engine, each a warm-up pass and two counted passes (tokens/s; verify
+   and decode steps; drafted, accepted and committed tokens; verify and
+   decode step ms on the host clock; graphs by kind and capture seconds;
+   every verify step one graph replay and one lag-0 sync, the streams
+   equal pass to pass, the pool whole) and a traced pass (B5 launches 12
+   x (prefill calls + verify steps), B4 12 x decode steps), the spec-on
+   host time by part, each divergence of spec-on from spec-off with its
+   row, position and spec-off top-2 logit gap, and the verify window's
+   logits against the plain backend (LOGIT_TOL); then the same at f32,
+   where spec-on must equal spec-off for 8 of 8; then the structured
+   wave (bf16, spec off and on: JSON mode greedy and sampled, a schema,
+   a stop sequence from the row's own unconstrained tokens, four
+   unconstrained rows): grammar-valid constrained streams, the stop row
+   cut after its stop sequence, the unconstrained rows byte for byte
+   those of the batch with no constraint;
+11. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
-   families' engine and training paths and the prefix path; a paged
+   families' engine and training paths, the prefix path and the
+   speculative path ``llama_spec``; a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-11. for each family, on its training phase's first weights and batch
+12. for each family, on its training phase's first weights and batch
    ([16, 1025]), holds the loss and every gradient through the CUDA
    kernels against the plain backend's (LOSS_TOL, GRAD_REL_TOL); then
    ``{"ok": true, "device": ...}`` last.
@@ -1617,6 +1637,444 @@ def prefix_phase(torch, kind, card, profile_host=False) -> dict:
             "block_ms": ms, "logit_diffs": diffs}
 
 
+# -------------------------------------------------------------- spec phase
+
+SPEC_K = 4
+SPEC_KINDS = (None, "int8")
+SPEC_PASSES = 2
+# a JSON-Schema of the structured-output tests' corpus
+# (tests/test_torch_structured.py SCHEMAS[1])
+SPEC_SCHEMA = {"type": "object", "properties": {
+    "n": {"type": "integer"}, "tag": {"enum": ["x", "y"]}}}
+STRUCTURED_LENGTHS = (30, 64, 120, 200, 45, 90, 150, 180)
+STRUCTURED_NEW_TOKENS = 64
+
+
+def spec_engine(kind=None, spec=False, dtype=None):
+    """The engine phases' Llama-125M engine (1024 blocks of 16, batch 8,
+    chunks of 256, prefix caching off), with ``speculative_k`` = SPEC_K
+    and the n-gram drafter when ``spec``."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    extra = dict(speculative_k=SPEC_K, drafter="ngram") if spec else {}
+    return ep.make_engine(kind, "llama", dtype=dtype, **extra)
+
+
+def counting_verify_syncs(engine) -> list:
+    """Count the executor's ``sync_verify`` calls (the verify step's D2H)
+    and the real rows of each verify step; returns [syncs, rows]."""
+    ex, n = engine.executor, [0, 0]
+    sync, record = ex.sync_verify, engine._sync_verify_locked
+
+    def counted(ids):
+        n[0] += 1
+        return sync(ids)
+
+    def rows(packed_dev, batch):
+        n[1] += batch
+        return record(packed_dev, batch)
+
+    ex.sync_verify = counted
+    engine._sync_verify_locked = rows
+    return n
+
+
+def pool_whole(engine, tag) -> None:
+    c = engine.cache
+    snap = c.debug_snapshot()
+    if (c.free_blocks != c.cfg.usable_blocks or c.reserved_blocks != 0
+            or snap["freed_total"] != snap["allocated_total"]):
+        raise AssertionError(f"{tag}: pool not whole: {snap}")
+
+
+def top2_gap(torch, engine, tokens) -> float:
+    """The gap between the two largest next-token logits after ``tokens``
+    on the engine's model (a prefill into a scratch pool of its own)."""
+    from ray_tpu_torch.models.families import kv_heads
+    from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
+
+    cfg = engine.model_cfg
+    bs = 16
+    nb = -(-len(tokens) // bs)
+    cache = PagedKVCache(KVCacheConfig(
+        n_layer=cfg.n_layer, n_kv_head=kv_heads(cfg), head_dim=cfg.head_dim,
+        num_blocks=nb + 1, block_size=bs, dtype=cfg.dtype, device="cuda",
+        quantization=cfg.quantization))
+    t = torch.tensor([tokens], dtype=torch.int32, device="cuda")
+    n = torch.tensor([len(tokens)], dtype=torch.int32, device="cuda")
+    tables = torch.arange(1, nb + 1, dtype=torch.int32,
+                          device="cuda")[None, :]
+    logits, _, _ = engine.executor.model.prefill(cache.k, cache.v, t, n,
+                                                 tables)
+    top = torch.topk(logits[0], 2).values
+    return float(top[0] - top[1])
+
+
+def spec_passes(torch, engine, prompts, params, tag, card) -> dict:
+    """One warm-up pass (the graphs captured), then SPEC_PASSES counted
+    passes timed on the host clock: each must repeat the first's streams,
+    replay a graph for every decode and verify step (no new capture) and
+    sync once a verify step at lag 0; the pool whole after each."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    fns = engine.fns
+    warm = ep.spec_serve(torch, engine, prompts, params)
+    graphs, capture_s = fns.graphs_by_kind(), fns.capture_seconds
+    syncs = counting_verify_syncs(engine)
+    runs = []
+    for _ in range(SPEC_PASSES):
+        was = (engine.num_decode_steps, engine.num_verify_steps,
+               dict(fns.kind_replays), syncs[0], syncs[1])
+        st0 = engine.stats()
+        run = ep.spec_serve(torch, engine, prompts, params)
+        st = engine.stats()
+        run["decode_steps"] = engine.num_decode_steps - was[0]
+        run["verify_steps"] = engine.num_verify_steps - was[1]
+        run["verify_rows"] = syncs[1] - was[4]
+        run["spec"] = {k: st[k] - st0[k] for k in (
+            "spec_drafted_tokens", "spec_accepted_tokens",
+            "spec_committed_tokens")}
+        replays = {k: fns.kind_replays[k] - was[2][k] for k in was[2]}
+        if (fns.graphs_by_kind() != graphs
+                or replays != {"decode": run["decode_steps"],
+                               "verify": run["verify_steps"]}
+                or syncs[0] - was[3] != run["verify_steps"]):
+            raise AssertionError(
+                f"{tag}: {replays} graph replays, {syncs[0] - was[3]} verify "
+                f"syncs for {run['decode_steps']} decode and "
+                f"{run['verify_steps']} verify steps; graphs "
+                f"{fns.graphs_by_kind()} (captured {graphs})")
+        pool_whole(engine, tag)
+        runs.append(run)
+    lags = {r["sync_lag"] for r in engine.debug_dump()["steps"]
+            if r["kind"] == "verify"}
+    if runs[-1]["verify_steps"] and lags != {0}:
+        raise AssertionError(f"{tag}: verify syncs at lags {lags}")
+    if any(r["outs"] != runs[0]["outs"] for r in runs):
+        raise AssertionError(f"{tag}: a second pass differs from the first")
+    for o in runs[0]["outs"]:
+        if len(o) != ep.SPEC_NEW_TOKENS:
+            raise AssertionError(f"{tag}: bad stream length {len(o)}")
+    ntok = sum(map(len, runs[0]["outs"]))
+    tps = [ntok / r["seconds"] for r in runs]
+    ms = {k: 1e3 * statistics.mean(x for r in runs for x in r["steps"][k])
+          for k in ("prefill", "decode", "verify")
+          if any(r["steps"][k] for r in runs)}
+    sp = runs[0]["spec"]
+    vsteps, vrows = runs[0]["verify_steps"], runs[0]["verify_rows"]
+    log(f"{tag}: {ntok} tokens a pass; tokens/s "
+        f"{', '.join(f'{t:.1f}' for t in tps)}; "
+        f"{vsteps} verify and {runs[0]['decode_steps']} decode steps, "
+        f"{len(runs[0]['steps']['prefill'])} prefill calls a pass; drafted "
+        f"{sp['spec_drafted_tokens']}, accepted {sp['spec_accepted_tokens']}"
+        f", committed {sp['spec_committed_tokens']} (accept rate "
+        f"{sp['spec_accepted_tokens'] / max(1, sp['spec_drafted_tokens']):.4f}"
+        f", committed per verify step "
+        f"{sp['spec_committed_tokens'] / max(1, vsteps):.4f} over the batch, "
+        f"{sp['spec_committed_tokens'] / max(1, vrows):.4f} a row of "
+        f"{vrows} row-steps); step ms "
+        f"(host clock, mean of {SPEC_PASSES} passes) "
+        f"{ {k: round(v, 4) for k, v in ms.items()} }; graphs captured "
+        f"{graphs} in {capture_s:.3f} s (warm-up pass "
+        f"{warm['seconds']:.3f} s); {card}")
+    return {"outs": runs[0]["outs"], "tokens_per_s": tps, "step_ms": ms,
+            "verify_steps": vsteps, "spec": sp}
+
+
+def spec_counted_pass(torch, engine, prompts, params, kind, tag) -> dict:
+    """One more pass under the profiler, the launch counts reset just
+    before it: B5 (B5q) 12 layers x (prefill calls + verify steps), B4
+    (B4q) 12 x decode steps on the device, from the trace; every other
+    paged kernel never."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    suffix = f"_{kind}" if kind else ""
+    n_layer = engine.model_cfg.n_layer
+    pa.reset_launches()
+    was = (engine.num_prefill_calls, engine.num_decode_steps,
+           engine.num_verify_steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = ep.spec_serve(torch, engine, prompts, params)
+    eager = dict(pa.LAUNCHES)
+    calls = (engine.num_prefill_calls - was[0],
+             engine.num_decode_steps - was[1],
+             engine.num_verify_steps - was[2])
+    launches = dict.fromkeys(pa.LAUNCHES, 0)
+    launches.update(ep.paged_launches(prof))
+    want = dict.fromkeys(launches, 0)
+    want["paged_decode" + suffix] = n_layer * calls[1]
+    want["paged_prefill" + suffix] = n_layer * (calls[0] + calls[2])
+    rows = ep.device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    wall_ms = run["seconds"] * 1e3
+    log(f"{tag}: counted pass: {calls[0]} prefill calls, {calls[1]} decode "
+        f"steps, {calls[2]} verify steps; launches on the device (trace) "
+        f"{launches} (expected {want}); eager wrapper launches {eager}; "
+        f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches} != {want}")
+    return {"launches": launches, "eager": eager, "calls": calls}
+
+
+def spec_host_breakdown(torch, engine, prompts, params, tag) -> None:
+    """One more pass of a spec-on engine with its host work timed by part
+    (perf_counter around the engine's and executor's methods): drafting
+    (every step drafts, a decode step too), staging a verify step, its
+    replay and the ids' copy queued, the wait for its verdicts, emitting,
+    and the rest of the verify step; per verify step, beside the step's
+    host time."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    ex = engine.executor
+    spent = {}
+
+    def timed(owner, name, part):
+        fn = getattr(owner, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[part] = spent.get(part, 0.0) + time.perf_counter() - t0
+
+        setattr(owner, name, wrapper)
+
+    for owner, name, part in (
+            (engine, "_propose_drafts_locked", "draft"),
+            (engine, "_verify_locked", "verify step"),
+            (engine, "_emit_token_locked", "emit"),
+            (ex, "stage_verify", "stage"),
+            (ex, "verify_step", "stage + replay"),
+            (ex, "sync_verify", "sync wait")):
+        timed(owner, name, part)
+    was = engine.num_verify_steps
+    run = ep.spec_serve(torch, engine, prompts, params)
+    for name in ("_propose_drafts_locked", "_verify_locked",
+                 "_emit_token_locked"):
+        delattr(engine, name)
+    for name in ("stage_verify", "verify_step", "sync_verify"):
+        delattr(ex, name)
+    n = engine.num_verify_steps - was
+    spent["replay"] = spent.pop("stage + replay") - spent["stage"]
+    log(f"{tag}: host ms a verify step, by part (one pass, {n} verify "
+        f"steps, {len(run['steps']['decode'])} decode steps): "
+        + ", ".join(f"{k} {1e3 * v / max(n, 1):.3f}"
+                    for k, v in spent.items())
+        + " (draft and emit also count decode steps' calls; emit inside "
+        "the verify step)")
+
+
+def verify_logits_check(torch, engine, tag) -> float:
+    """The verify step's window logits (``sample=None``) through the CUDA
+    kernels against the plain backend on the same weights, pool and window:
+    8 sequences of 37-900 tokens prefilled into free blocks of the idle
+    pool, windows of 5 starting mid-block, draft lengths 0-4 (LOGIT_TOL
+    on the valid columns)."""
+    import numpy as np
+
+    from ray_tpu_torch.models.families import family
+
+    ex = engine.executor
+    cfg, cache = engine.model_cfg, engine.cache
+    if cache.used_blocks:
+        raise AssertionError("verify_logits_check needs an idle pool")
+    rng = np.random.default_rng(8)
+    B, nb, W = 8, 64, SPEC_K + 1
+    lengths = np.array([37, 250, 401, 512, 640, 700, 813, 900], np.int32)
+    tables = np.arange(1, 1 + B * nb, dtype=np.int32).reshape(B, nb)
+    tokens = rng.integers(0, cfg.vocab_size, (B, 1024)).astype(np.int32)
+    first = ex.sync_tokens(ex.prefill(tokens, lengths, tables))
+    window = rng.integers(0, cfg.vocab_size, (B, W)).astype(np.int32)
+    window[:, 0] = first
+    dlen = np.array([4, 3, 0, 2, 4, 1, 4, 4], np.int32)
+    g = ex.stage_verify(window, lengths, dlen, tables)
+    got = ex.fns.verify(g.inputs, False, False, logits=True)
+    base = ex.model
+    plain = type(base)(dataclasses.replace(base.cfg, attention_backend="torch"),
+                       base.device)
+    plain.load_weights(base.weights())
+    want, _, _ = family("llama").verify_step(
+        plain, cache.k, cache.v, g.inputs["tokens"], g.inputs["starts"],
+        g.inputs["draft_len"], g.inputs["tables"])
+    valid = (torch.arange(W, device="cuda")[None, :]
+             <= g.inputs["draft_len"][:, None])
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: non-finite verify logits")
+    diff = (got - want).abs()[valid].max().item()
+    log(f"{tag}: verify window logits cuda vs plain backend: max_abs_diff "
+        f"{diff:.3e} over {int(valid.sum())} columns (tol {LOGIT_TOL})")
+    if not diff <= LOGIT_TOL:
+        raise AssertionError(f"{tag}: verify logits differ by {diff}")
+    del plain
+    return diff
+
+
+def spec_phase(torch, kind, card) -> dict:
+    """Llama-125M (``kind``: None for bf16, or "int8") on
+    ``engine_profile.spec_workload``: a spec-off and a spec-on engine
+    (``speculative_k`` = SPEC_K, n-gram drafter), each through
+    ``spec_passes`` and a counted pass (the spec-on engine's launches are
+    the path "llama_spec"); the spec-on streams against the spec-off ones
+    (each divergence printed with its row, position and the spec-off
+    top-2 logit gap there: bf16 identity across B4 and B5, and across
+    [B, 1] and [B, 5] matmuls, is not a property of the card), then the
+    verify window's logits against the plain backend's."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    name = f"llama {kind or 'bf16'}"
+    result = {}
+    engines = {}
+    for spec in (False, True):
+        torch.cuda.empty_cache()
+        eng = spec_engine(kind, spec)
+        if eng.executor.quantization != kind:
+            raise AssertionError(f"engine quantization {kind}")
+        tag = f"spec[{name} {'on' if spec else 'off'}]"
+        prompts, params = ep.spec_workload(eng.model_cfg.vocab_size)
+        result[spec] = spec_passes(torch, eng, prompts, params, tag, card)
+        result[spec].update(spec_counted_pass(torch, eng, prompts, params,
+                                              kind, tag))
+        if spec and not (result[spec]["verify_steps"]
+                         and result[spec]["calls"][2]):
+            raise AssertionError(f"{tag}: no verify step ran")
+        if spec:
+            spec_host_breakdown(torch, eng, prompts, params, tag)
+        engines[spec] = eng
+    off, on = result[False]["outs"], result[True]["outs"]
+    same = sum(a == b for a, b in zip(off, on))
+    log(f"spec[{name}]: spec-on streams equal spec-off in {same} of "
+        f"{len(off)}; tokens/s on / off = "
+        f"{statistics.mean(result[True]['tokens_per_s']) / statistics.mean(result[False]['tokens_per_s']):.4f}; "
+        f"verify step / decode step = "
+        f"{result[True]['step_ms'].get('verify', float('nan')) / result[False]['step_ms']['decode']:.4f}")
+    for row, (a, b) in enumerate(zip(off, on)):
+        if a != b:
+            pos = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            gap = top2_gap(torch, engines[False], prompts[row] + a[:pos])
+            log(f"spec[{name}]: row {row} diverges at generated position "
+                f"{pos} (off {a[pos]}, on {b[pos]}); spec-off top-2 logit "
+                f"gap there {gap:.4e}")
+    verify_logits_check(torch, engines[True], f"spec[{name}]")
+    del engines
+    return {"launches": result[True]["launches"],
+            "eager": result[True]["eager"]}
+
+
+def spec_lossless_phase(torch, card) -> None:
+    """The spec phase at the model's f32 (B4 and B5 take f32 q; TF32 is
+    off): spec-on streams equal spec-off streams, 8 of 8, greedy and
+    sampled."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    outs = {}
+    for spec in (False, True):
+        torch.cuda.empty_cache()
+        eng = spec_engine(None, spec, dtype=torch.float32)
+        prompts, params = ep.spec_workload(eng.model_cfg.vocab_size)
+        ep.spec_serve(torch, eng, prompts, params)
+        run = ep.spec_serve(torch, eng, prompts, params)
+        outs[spec] = run["outs"]
+        st = eng.stats()
+        ntok = sum(map(len, run["outs"]))
+        log(f"spec[llama f32 {'on' if spec else 'off'}]: {ntok / run['seconds']:.1f}"
+            f" tokens/s; verify steps {len(run['steps']['verify'])}, decode "
+            f"steps {len(run['steps']['decode'])}; spec_accept_rate "
+            f"{st['spec_accept_rate']:.4f}, committed per step "
+            f"{st['spec_committed_per_step']:.4f}; {card}")
+        pool_whole(eng, "spec[llama f32]")
+        del eng
+    same = sum(a == b for a, b in zip(outs[False], outs[True]))
+    log(f"spec[llama f32]: spec-on streams equal spec-off in {same} of "
+        f"{len(outs[True])}")
+    if same != len(outs[True]):
+        raise AssertionError("f32 speculation is not lossless")
+
+
+def structured_requests(vocab_size, stop=None, constrained=True):
+    """The structured wave: 8 prompts of STRUCTURED_LENGTHS tokens; rows
+    0-1 JSON mode (greedy, sampled), row 2 the schema, row 3 greedy with
+    the stop sequence ``stop``, rows 4-7 unconstrained (row 5 sampled).
+    ``constrained=False`` drops every constraint and stop."""
+    import numpy as np
+
+    from ray_tpu_torch.serve.llm import SamplingParams
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, vocab_size, n).tolist()
+               for n in STRUCTURED_LENGTHS]
+    nucleus = dict(temperature=0.8, top_p=0.9, seed=7)
+    kws = [{}, dict(nucleus), {}, {}, {}, dict(nucleus, seed=9), {}, {}]
+    if constrained:
+        kws[0]["structured"] = kws[1]["structured"] = "json"
+        kws[2]["structured"] = {"type": "json_schema", "schema": SPEC_SCHEMA}
+        kws[3]["stop"] = (stop,)
+    return prompts, [SamplingParams(max_new_tokens=STRUCTURED_NEW_TOKENS, **kw)
+                     for kw in kws]
+
+
+def structured_phase(torch, card) -> None:
+    """The structured wave on Llama-125M bf16, spec off and on: the batch
+    unconstrained, then with rows 0-3 constrained. Each constrained stream
+    is a grammar-valid prefix (a host FSMCursor never rejects; a stream
+    that ends early ends at must_stop), the stop row ends with its stop
+    sequence (taken from the unconstrained row's own tokens) and nothing
+    after, and rows 4-7 equal the unconstrained batch's byte for byte."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.serve.llm import structured
+
+    for spec in (False, True):
+        torch.cuda.empty_cache()
+        eng = spec_engine(None, spec)
+        tag = f"structured[llama bf16 spec {'on' if spec else 'off'}]"
+        vocab = eng.model_cfg.vocab_size
+        base = ep.spec_serve(torch, eng, *structured_requests(
+            vocab, constrained=False))["outs"]
+        stop = tuple(base[3][20:22])
+        end = next(i + 2 for i in range(len(base[3]) - 1)
+                   if tuple(base[3][i:i + 2]) == stop)
+        prompts, params = structured_requests(vocab, stop)
+        ep.spec_serve(torch, eng, prompts, params)  # masked graphs captured
+        t0 = time.perf_counter()
+        run = ep.spec_serve(torch, eng, prompts, params)
+        seconds = time.perf_counter() - t0
+        outs = run["outs"]
+        for row in range(3):
+            sp = params[row]
+            dfa = structured.compile_grammar(
+                structured.parse_response_format(sp.structured), vocab,
+                eng.cfg.eos_id)
+            cur = structured.FSMCursor(dfa)
+            for t in outs[row]:
+                if not cur.advance(t):
+                    raise AssertionError(f"{tag}: row {row} token {t} "
+                                         f"rejected: {outs[row]}")
+            if len(outs[row]) < sp.max_new_tokens and not cur.must_stop:
+                raise AssertionError(f"{tag}: row {row} ended before its "
+                                     f"budget off a full match")
+            log(f"{tag}: row {row} ({len(outs[row])} tokens, "
+                f"{'must_stop' if cur.must_stop else 'budget'}): "
+                f"{bytes(t for t in outs[row] if t < 256)!r}")
+        if outs[3] != base[3][:end]:
+            raise AssertionError(f"{tag}: stop row {outs[3]} != "
+                                 f"{base[3][:end]} (stop {stop})")
+        if outs[4:] != base[4:]:
+            raise AssertionError(f"{tag}: unconstrained rows changed")
+        masked = sorted(s for s in eng.fns.signatures if s[-1] is True)
+        st = eng.stats()
+        log(f"{tag}: stop row ends at {end} tokens with {stop}; rows 4-7 "
+            f"equal the unconstrained batch's; {sum(map(len, outs))} tokens "
+            f"in {seconds:.3f} s; masked signatures {masked}; spec_steps "
+            f"{st['spec_steps']}, grammar_cache {st['grammar_cache']}; {card}")
+        pool_whole(eng, tag)
+        del eng
+
+
 def profile_phase(torch, eng) -> None:
     """One more warm pass over the same requests under torch.profiler:
     device time by kernel, the device's busy share of the wall time, the
@@ -1819,6 +2277,20 @@ def main() -> int:
             launches["llama_prefix"][base + suffix] = pre["launches"][
                 base + suffix]
             eager["llama_prefix"][base + suffix] = pre["eager"][base + suffix]
+
+    # the speculative path: Llama-125M bf16 and int8 spec-on engines, the
+    # counts reset just before each counted pass and read just after
+    paths = (*paths, "llama_spec")
+    launches["llama_spec"], eager["llama_spec"] = {}, {}
+    for kind in SPEC_KINDS:
+        sp = spec_phase(torch, kind, card)
+        suffix = f"_{kind}" if kind else ""
+        for base in ("paged_decode", "paged_prefill"):
+            launches["llama_spec"][base + suffix] = sp["launches"][
+                base + suffix]
+            eager["llama_spec"][base + suffix] = sp["eager"][base + suffix]
+    spec_lossless_phase(torch, card)
+    structured_phase(torch, card)
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")

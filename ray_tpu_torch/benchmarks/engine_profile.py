@@ -58,6 +58,9 @@ PREFIX_ENGINE = dict(block_size=16, num_blocks=256, max_batch_size=8,
 SHARED_PREFIX = 512
 SUFFIX_LENGTHS = (30, 64, 120, 200, 30, 64, 120, 200)
 FLOOD_PROMPTS, FLOOD_LENGTH = 12, 700
+# speculative-decoding traffic (spec_workload): 8 prompts, each a seeded
+# random motif of 16-48 tokens repeated to 200-800 tokens, 64 new tokens
+SPEC_MOTIF, SPEC_LENGTH, SPEC_NEW_TOKENS = (16, 48), (200, 800), 64
 # the host launch API calls counted per decode step (CUPTI runtime names
 # may carry a version suffix)
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
@@ -109,6 +112,31 @@ def prefix_workload(vocab_size: int, new_tokens: int = NEW_TOKENS) -> dict:
     return {"wave": (wave, params), "flood": (flood, [greedy] * len(flood))}
 
 
+def spec_workload(vocab_size: int, seed: int = 0,
+                  new_tokens: int = SPEC_NEW_TOKENS):
+    """Speculative-decoding traffic, seeded: 8 prompts, each a random motif
+    of ``SPEC_MOTIF`` tokens repeated up to a length in ``SPEC_LENGTH``
+    (the repeated structure prompt-lookup drafting targets: templated
+    text, code, few-shot examples), ``new_tokens`` each; request 3
+    samples (temperature 0.8, top-p 0.9, seed 7), the rest are greedy."""
+    import numpy as np
+
+    from ray_tpu_torch.serve.llm import SamplingParams
+
+    rng = np.random.default_rng(seed)
+    prompts = []
+    for _ in range(8):
+        motif = rng.integers(0, vocab_size,
+                             int(rng.integers(SPEC_MOTIF[0],
+                                              SPEC_MOTIF[1] + 1))).tolist()
+        length = int(rng.integers(SPEC_LENGTH[0], SPEC_LENGTH[1] + 1))
+        prompts.append((motif * (length // len(motif) + 1))[:length])
+    params = [SamplingParams(max_new_tokens=new_tokens) for _ in prompts]
+    params[3] = SamplingParams(max_new_tokens=new_tokens, temperature=0.8,
+                               top_p=0.9, seed=7)
+    return prompts, params
+
+
 def distinct_blocks(prompts, block_size: int) -> int:
     """Full prompt blocks of distinct content (chain) among ``prompts``:
     the most blocks a run of them can demote."""
@@ -131,14 +159,16 @@ def _config(**kw):
     return EngineConfig(**{k: v for k, v in kw.items() if k in names})
 
 
-def make_engine(quant=None, model="gpt", **overrides):
+def make_engine(quant=None, model="gpt", dtype=None, **overrides):
     """The engine of family ``model`` at full width (``Family.full``):
-    GPT-2 125M, or Llama-125M; ``overrides`` set other knobs
-    (``prefix_caching``)."""
+    GPT-2 125M, or Llama-125M, in ``dtype`` (None: the config's bf16);
+    ``overrides`` set other knobs (``prefix_caching``, ``speculative_k``)."""
     from ray_tpu_torch.models.families import family
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = family(model).full()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     return LLMEngine(_config(model=model, model_config=cfg,
                              quantization=quant, **{**ENGINE, **overrides}),
                      auto_step=False)
@@ -170,6 +200,32 @@ def serve(torch, engine, prompts, params) -> dict:
         if not engine.step():
             break
         steps[engine.last_step_kind].append(time.perf_counter() - ts)
+    torch.cuda.synchronize()
+    return {"outs": [list(s) for s in streams],
+            "seconds": time.perf_counter() - t0, "steps": steps}
+
+
+def spec_serve(torch, engine, prompts, params) -> dict:
+    """``serve`` for an engine that may run verify steps: the host time of
+    each step by what it ran ("prefill", "decode", "verify", or "drain": a
+    step that only reconciled the step in flight), from the engine's call
+    counters."""
+    steps = {"prefill": [], "decode": [], "verify": [], "drain": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, s) for p, s in zip(prompts, params)]
+    while True:
+        was = (engine.num_prefill_calls, engine.num_decode_steps,
+               engine.num_verify_steps)
+        ts = time.perf_counter()
+        if not engine.step():
+            break
+        dt = time.perf_counter() - ts
+        now = (engine.num_prefill_calls, engine.num_decode_steps,
+               engine.num_verify_steps)
+        kind = ("prefill" if now[0] > was[0] else "verify" if now[2] > was[2]
+                else "decode" if now[1] > was[1] else "drain")
+        steps[kind].append(dt)
     torch.cuda.synchronize()
     return {"outs": [list(s) for s in streams],
             "seconds": time.perf_counter() - t0, "steps": steps}

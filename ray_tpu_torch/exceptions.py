@@ -10,3 +10,8 @@ class RequestCancelledError(Exception):
 
 class EngineDiedError(Exception):
     """An engine step raised; every in-flight stream is dead."""
+
+
+class DeadlineExceededError(TimeoutError):
+    """The request's ``deadline_s`` expired before generation completed;
+    the sequence was evicted and its KV blocks freed."""

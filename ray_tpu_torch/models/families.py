@@ -3,7 +3,9 @@
 and serving alike: ``serve/llm/decode.py`` re-exports it.
 
 Each family names its config and model classes, its seeded init, its
-quantization axes and its config at full width:
+quantization axes, its config at full width and its speculative verify
+step (``GPT.verify_step`` / ``Llama.verify_step``, as the reference
+registry names ``gpt_verify_step`` / ``llama_verify_step``):
 
 - ``gpt``: GPT-2 125M (``GPTConfig.gpt2_small()``);
 - ``llama``: Llama-125M, the repo's own Llama benchmark shape
@@ -32,21 +34,24 @@ def _llama_125m() -> llama.LlamaConfig:
 class Family:
     """One model family: its config class (whose ``tiny()`` is the
     engine's default), model class, seeded init ``(cfg, seed, device)``,
-    per-weight quantization axes ``(cfg) -> dict`` and its config at full
-    width ``() -> config``."""
+    per-weight quantization axes ``(cfg) -> dict``, its config at full
+    width ``() -> config`` and its verify step ``(model, cache_k,
+    cache_v, tokens, starts, draft_len, block_tables, sample=None)``."""
 
     config: type
     model: type
     init: Callable
     quant_axes: Callable
     full: Callable
+    verify_step: Callable
 
 
 FAMILIES = {
     "gpt": Family(gpt.GPTConfig, gpt.GPT, gpt.gpt_init, gpt.gpt_quant_axes,
-                  gpt.GPTConfig.gpt2_small),
+                  gpt.GPTConfig.gpt2_small, gpt.GPT.verify_step),
     "llama": Family(llama.LlamaConfig, llama.Llama, llama.llama_init,
-                    llama.llama_quant_axes, _llama_125m),
+                    llama.llama_quant_axes, _llama_125m,
+                    llama.Llama.verify_step),
 }
 
 

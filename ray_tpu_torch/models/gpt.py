@@ -1,7 +1,8 @@
 """GPT-2 family (counterpart of ``ray_tpu/models/gpt.py``): the training
 paths ``hidden`` / ``forward`` / ``loss`` (``gpt_hidden`` / ``gpt_forward``
 / ``gpt_loss``) and the KV-cached serving paths ``prefill`` /
-``decode_step`` (``gpt_prefill`` / ``gpt_decode_step``).
+``decode_step`` / ``verify_step`` (``gpt_prefill`` / ``gpt_decode_step``
+/ ``gpt_verify_step``).
 
 Weights, two policies:
 - serving (``GPT(cfg)``): the matmul weights, biases and embeddings are
@@ -49,7 +50,7 @@ from ray_tpu_torch.ops.quantization import (
     quant_dtype,
     resolve_quantization,
 )
-from ray_tpu_torch.ops.sampling import sample_tokens
+from ray_tpu_torch.ops.sampling import sample_tokens, verify_tokens
 
 
 @dataclass(frozen=True)
@@ -364,15 +365,11 @@ class GPT(nn.Module):
 
     # ---- KV-cached serving paths ----
 
-    @torch.no_grad()
-    def prefill(self, cache_k, cache_v, tokens, lengths, block_tables,
-                start=None, sample=None):
-        """Prompt pass over right-padded chunks, writing every valid
-        position's K/V into the pool. tokens [B, S], lengths [B] (valid
-        prefix per row), block_tables [B, NB] int32; ``start`` [B] gives
-        each row's first true position (chunked prefill), None = 0.
-        Returns (last-valid-token logits [B, V] f32, or sampled ids [B]
-        int32 with ``sample``; cache_k; cache_v)."""
+    def _chunk_hidden(self, cache_k, cache_v, tokens, lengths, block_tables,
+                      start):
+        """The prompt-chunk body shared by ``prefill`` and ``verify_step``:
+        every valid position's K/V written into the pool, the final
+        hidden states [B, S, D] returned (after the final layer norm)."""
         cfg = self.cfg
         B, S = tokens.shape
         D = cfg.d_model
@@ -413,12 +410,50 @@ class GPT(nn.Module):
                 ).reshape(B, S, D)
             x = self._attn_residual(x, attn, bp)
             x = self._mlp_residual(x, bp)
-        h = layer_norm(x, self.ln_f_scale, self.ln_f_bias)
-        h_last = h[torch.arange(B, device=dev), (lengths - 1).long()]
+        return layer_norm(x, self.ln_f_scale, self.ln_f_bias)
+
+    @torch.no_grad()
+    def prefill(self, cache_k, cache_v, tokens, lengths, block_tables,
+                start=None, sample=None):
+        """Prompt pass over right-padded chunks, writing every valid
+        position's K/V into the pool. tokens [B, S], lengths [B] (valid
+        prefix per row), block_tables [B, NB] int32; ``start`` [B] gives
+        each row's first true position (chunked prefill), None = 0.
+        Returns (last-valid-token logits [B, V] f32, or sampled ids [B]
+        int32 with ``sample``; cache_k; cache_v)."""
+        B = tokens.shape[0]
+        h = self._chunk_hidden(cache_k, cache_v, tokens, lengths,
+                               block_tables, start)
+        h_last = h[torch.arange(B, device=self.device), (lengths - 1).long()]
         logits = self._logits(h_last)
         if sample is None:
             return logits, cache_k, cache_v
         return sample_tokens(logits, sample), cache_k, cache_v
+
+    @torch.no_grad()
+    def verify_step(self, cache_k, cache_v, tokens, starts, draft_len,
+                    block_tables, sample=None):
+        """Speculative-decoding verify pass over a [B, W] window
+        (``gpt_verify_step``): column 0 is each row's last committed token
+        at true position ``starts`` [B] (its K/V not yet in the pool, as
+        in a decode step), columns 1..``draft_len`` [B] its drafts, later
+        columns padding. The chunked prefill's body at true positions
+        (learned positions clamped to the table, K/V written for the
+        valid columns, padding to block 0 slot 0, attention at
+        ``where(valid, pos, 0)``), with the tied head at EVERY column.
+
+        A rejected draft's K/V lies past the committed frontier, where the
+        causal mask keeps it unread until a later window overwrites it.
+        Returns (packed verdicts [B, W + 1] int32, ``verify_tokens``;
+        cache_k; cache_v), or with ``sample=None`` the window's logits
+        [B, W, V] f32. No host read: a CUDA graph can capture it."""
+        h = self._chunk_hidden(cache_k, cache_v, tokens, draft_len + 1,
+                               block_tables, starts)
+        logits = self._logits(h)
+        if sample is None:
+            return logits, cache_k, cache_v
+        return (verify_tokens(logits, starts, tokens, draft_len, sample),
+                cache_k, cache_v)
 
     @torch.no_grad()
     def decode_step(self, cache_k, cache_v, tokens, positions, block_tables,

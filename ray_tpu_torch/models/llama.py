@@ -2,8 +2,8 @@
 rotary embeddings, grouped-query attention (GQA), a SwiGLU MLP and an
 untied lm head. The training paths ``hidden`` / ``forward`` / ``loss``
 (``llama_hidden`` / ``llama_forward`` / ``llama_loss``) and the KV-cached
-serving paths ``prefill`` / ``decode_step`` (``llama_prefill`` /
-``llama_decode_step``).
+serving paths ``prefill`` / ``decode_step`` / ``verify_step``
+(``llama_prefill`` / ``llama_decode_step`` / ``llama_verify_step``).
 
 Weights follow ``models/gpt.py``'s policies: a serving model holds its
 matmul weights and embeddings once in ``cfg.dtype`` (or as
@@ -24,8 +24,7 @@ first S rows of the same table, so every path reads the values JAX's
 ``rope_cache(S)`` gives.
 
 Not ported yet: ``num_experts > 0`` (MoE) and ``attention="ring"`` wait
-for the multi-GPU work; ``llama_verify_step`` waits for speculative
-decoding. The JAX config's ``scan_layers`` has no eager counterpart.
+for the multi-GPU work. The JAX config's ``scan_layers`` has no eager counterpart.
 """
 from __future__ import annotations
 
@@ -49,7 +48,7 @@ from ray_tpu_torch.ops.paged_attention import (
     prefill_attention,
     resolve_backend,
 )
-from ray_tpu_torch.ops.sampling import sample_tokens
+from ray_tpu_torch.ops.sampling import sample_tokens, verify_tokens
 
 
 @dataclass(frozen=True)
@@ -319,14 +318,13 @@ class Llama(nn.Module):
 
     # ---- KV-cached serving paths ----
 
-    @torch.no_grad()
-    def prefill(self, cache_k, cache_v, tokens, lengths, block_tables,
-                start=None, sample=None):
-        """Prompt pass over right-padded chunks (``GPT.prefill``'s
-        contract), RoPE at the true positions (``start`` [B] + 0..S-1, or
-        0..S-1), clamped to the table on padding columns. Returns
-        (last-valid-token logits [B, V] f32, or sampled ids [B] int32 with
-        ``sample``; cache_k; cache_v)."""
+    def _chunk_hidden(self, cache_k, cache_v, tokens, lengths, block_tables,
+                      start):
+        """The prompt-chunk body shared by ``prefill`` and ``verify_step``:
+        RoPE at the true positions (``start`` [B] + 0..S-1, or 0..S-1),
+        clamped to the table on padding columns, every valid position's
+        K/V written; returns the final hidden states [B, S, D] (after the
+        final RMSNorm)."""
         cfg = self.cfg
         B, S = tokens.shape
         D = cfg.d_model
@@ -363,12 +361,40 @@ class Llama(nn.Module):
                 ).reshape(B, S, D)
             x = x + _mm(attn, bp.wo)
             x = self._ffn_residual(x, bp)
-        h = rms_norm(x, self.ln_f_scale)
-        h_last = h[torch.arange(B, device=dev), (lengths - 1).long()]
+        return rms_norm(x, self.ln_f_scale)
+
+    @torch.no_grad()
+    def prefill(self, cache_k, cache_v, tokens, lengths, block_tables,
+                start=None, sample=None):
+        """Prompt pass over right-padded chunks (``GPT.prefill``'s
+        contract), RoPE at the true positions. Returns (last-valid-token
+        logits [B, V] f32, or sampled ids [B] int32 with ``sample``;
+        cache_k; cache_v)."""
+        B = tokens.shape[0]
+        h = self._chunk_hidden(cache_k, cache_v, tokens, lengths,
+                               block_tables, start)
+        h_last = h[torch.arange(B, device=self.device), (lengths - 1).long()]
         logits = self._logits(h_last)
         if sample is None:
             return logits, cache_k, cache_v
         return sample_tokens(logits, sample), cache_k, cache_v
+
+    @torch.no_grad()
+    def verify_step(self, cache_k, cache_v, tokens, starts, draft_len,
+                    block_tables, sample=None):
+        """Speculative-decoding verify pass over a [B, W] window
+        (``llama_verify_step``; ``GPT.verify_step``'s contract): RoPE at
+        the clamped true positions, GQA over the pool's kv heads, the
+        untied head at every column. Returns (packed verdicts [B, W + 1]
+        int32; cache_k; cache_v), or with ``sample=None`` the window's
+        logits [B, W, V] f32."""
+        h = self._chunk_hidden(cache_k, cache_v, tokens, draft_len + 1,
+                               block_tables, starts)
+        logits = self._logits(h)
+        if sample is None:
+            return logits, cache_k, cache_v
+        return (verify_tokens(logits, starts, tokens, draft_len, sample),
+                cache_k, cache_v)
 
     @torch.no_grad()
     def decode_step(self, cache_k, cache_v, tokens, positions, block_tables,

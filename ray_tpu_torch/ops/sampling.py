@@ -141,3 +141,46 @@ def sample_tokens(logits: torch.Tensor, sample: dict) -> torch.Tensor:
             f"{logits.device}, got {[str(t.device) for t in controls]}")
     sampled = _sampled_rows(logits, sample["uniform"], *controls)
     return torch.where(greedy_rows(sample), greedy, sampled)
+
+
+def verify_tokens(logits: torch.Tensor, starts: torch.Tensor,
+                  draft_tokens: torch.Tensor, draft_len: torch.Tensor,
+                  sample: dict) -> torch.Tensor:
+    """Speculative-decoding epilogue over a [B, W] verify window
+    (``verify_tokens`` of the reference).
+
+    ``logits`` [B, W, V] f32 are the target model's outputs at window
+    columns 0..W-1: column 0 held each row's last committed token (true
+    position ``starts`` [B]), columns 1..``draft_len`` [B] its drafted
+    candidates ``draft_tokens`` [B, W]; later columns are padding. The
+    logits at column s predict the token at position starts + s + 1, and
+    the target token there is ``sample_tokens`` of that column: the same
+    pure function of (logits, seed, position) as a decode step, so the
+    committed stream equals non-speculative decoding, greedy or sampled.
+
+    ``sample`` is ``sample_tokens``' dict for the B * W columns: a [B]
+    leaf is tiled across the window, a leaf of two or more dims ([B, W]
+    draws ``uniform``, keyed at positions starts + 1 + s; the [B, W,
+    words] grammar ``mask``, one allow-set per column) flattens
+    row-major. Draft column s is accepted iff it equals the target drawn
+    at column s - 1, in a leading run within ``draft_len``.
+
+    Returns packed [B, W + 1] int32: column 0 the committed count c in
+    1..draft_len + 1 (the accepted drafts and one corrected or bonus
+    token), columns 1..W the targets; the committed tokens are
+    ``packed[b, 1:1 + c]``. No host read and no shape that depends on
+    the data: a CUDA graph can capture it."""
+    B, W, V = logits.shape
+    flat = {}
+    for k, v in sample.items():
+        if isinstance(v, torch.Tensor):
+            v = (v.reshape(B * W, *v.shape[2:]) if v.dim() >= 2
+                 else v.repeat_interleave(W, dim=0))
+        flat[k] = v
+    tgt = sample_tokens(logits.reshape(B * W, V), flat).reshape(B, W)
+    match = draft_tokens[:, 1:].to(torch.int32) == tgt[:, :-1]
+    cols = torch.arange(1, W, device=logits.device)
+    within = cols[None, :] <= draft_len[:, None]
+    accepted = torch.cumprod((match & within).to(torch.int32), dim=1).sum(1)
+    committed = (accepted + 1).to(torch.int32)
+    return torch.cat([committed[:, None], tgt], dim=1)

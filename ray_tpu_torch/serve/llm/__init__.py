@@ -1,9 +1,15 @@
 """Continuous-batching LLM serving of the port: paged KV cache
 (``kv_cache.py``), the model steps and their CUDA graphs (``decode.py``),
-the device side (``executor.py``) and the scheduler (``engine.py``)."""
+the device side (``executor.py``), the scheduler (``engine.py``), the
+speculative drafter (``drafter.py``) and grammar-constrained output
+(``structured.py``)."""
 from __future__ import annotations
 
-from ray_tpu_torch.exceptions import EngineDiedError, RequestCancelledError
+from ray_tpu_torch.exceptions import (
+    DeadlineExceededError,
+    EngineDiedError,
+    RequestCancelledError,
+)
 from ray_tpu_torch.serve.llm.engine import (
     EngineConfig,
     LLMEngine,
@@ -12,6 +18,6 @@ from ray_tpu_torch.serve.llm.engine import (
 )
 
 __all__ = [
-    "EngineConfig", "EngineDiedError", "LLMEngine", "RequestCancelledError",
-    "SamplingParams", "TokenStream",
+    "DeadlineExceededError", "EngineConfig", "EngineDiedError", "LLMEngine",
+    "RequestCancelledError", "SamplingParams", "TokenStream",
 ]

@@ -27,10 +27,10 @@ N+1, so bucketing, table packing and scheduling run while the device
 computes. Any change of the batch (a join, a finish, an eviction, a row
 at its token budget) first collapses the lag: the pending step is
 reconciled on the host and the next one dispatched from host tokens.
-EOS and cancel are reconciled when the lagged tokens arrive (at most one
-wasted speculative row per finished request), and a row's blocks are
-released exactly once, after its last in-flight step; blocks freed while
-a step is in flight are quarantined until the next sync
+EOS, cancel and deadlines are reconciled when the lagged tokens arrive
+(at most one wasted speculative row per finished request), and a row's
+blocks are released exactly once, after its last in-flight step; blocks
+freed while a step is in flight are quarantined until the next sync
 (``kv_cache.flush_quarantine``). Prefill syncs its first tokens at once
 (lag 0).
 
@@ -58,21 +58,45 @@ the next dispatch window, before any copy-on-write. ``export_prefix`` /
 ``adopt_prefix`` move a prompt's blocks between engines (also the JAX
 engine's records, f32).
 
-What this slice leaves out of the JAX engine: preemption (and its use of
-``kv_cache.demote_chain``), admission skip-ahead
-(``admission_probe``), the router's prefix digests, speculative
-decoding, structured output (so no batch forces the lag to collapse),
-stop sequences, deadlines, admission-queue limits, sharded executors,
+Speculative decoding (``EngineConfig.speculative_k`` > 0, as in the JAX
+engine): a host drafter (``drafter.py``, "ngram" by default) proposes up
+to k tokens a row, clamped to the row's budget and, for a constrained
+row, to its grammar; when any row drafts, the lag collapses and ONE
+verify step scores the [B, k + 1] window (``executor.verify_step``: one
+CUDA graph per verify signature, B5 over the window at true positions),
+syncs its packed verdicts at lag 0 and commits 1..k + 1 tokens a row,
+losslessly (exact match against the keyed sampler). When no row drafts,
+the lag-1 decode runs untouched.
+
+The request surface of ``SamplingParams``: ``structured`` (JSON mode, a
+JSON-Schema subset or a regex, ``structured.py``: a token DFA whose
+allow-mask rows ride the step's sampling inputs; a constrained row
+collapses the lag every step, its drafts are cut at the grammar and a
+verify window stages one mask per column), ``stop`` sequences (matched
+across the resume boundary), ``deadline_s`` (expired requests are
+evicted at the top of a step and fail with ``DeadlineExceededError``)
+and ``start_index`` (failover resume: the grammar replays the prompt's
+delivered tail).
+
+What the port's engine leaves out of the JAX engine so far: priority
+classes (``SamplingParams.priority`` is refused) with preemption (and
+its use of ``kv_cache.demote_chain``), admission skip-ahead
+(``admission_probe``, ``admission_max_skips``), admission-queue limits
+(``max_waiting``, ``max_waiting_blocks``, ``EngineOverloadedError``),
 observability beyond ``stats()`` and the sync records of
-``debug_dump()``, and graphs for prefill (it runs eagerly). The head of
-the admission queue blocks the requests behind it until it fits.
+``debug_dump()`` (``obs.py``, the flight recorder, the watchdog), the
+Serve deployment (``api.py``), the router's prefix digests, sharded
+executors, and graphs for prefill (it runs eagerly). The head of the
+admission queue blocks the requests behind it until it fits.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import queue
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -80,19 +104,27 @@ from typing import Any, Sequence
 import numpy as np
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.exceptions import EngineDiedError, RequestCancelledError
+from ray_tpu_torch.exceptions import (
+    DeadlineExceededError,
+    EngineDiedError,
+    RequestCancelledError,
+)
 from ray_tpu_torch.models.families import kv_heads
 from ray_tpu_torch.ops import kv_cache as kv_ops
 from ray_tpu_torch.ops.paged_attention import resolve_backend
 from ray_tpu_torch.ops.quantization import resolve_quantization, stack_blocks
 from ray_tpu_torch.serve._shapes import pad_to_bucket, pow2_buckets
-from ray_tpu_torch.serve.llm.decode import family
+from ray_tpu_torch.serve.llm import structured
+from ray_tpu_torch.serve.llm.decode import family, mask_words
+from ray_tpu_torch.serve.llm.drafter import build_drafter
 from ray_tpu_torch.serve.llm.executor import SingleDeviceExecutor
 from ray_tpu_torch.serve.llm.kv_cache import (
     KVCacheConfig,
     PagedKVCache,
     _block_key,
 )
+
+logger = logging.getLogger("ray_tpu_torch.serve.llm")
 
 _DONE = object()  # stream sentinel
 
@@ -110,13 +142,32 @@ class SamplingParams:
     top_k: int = 0            # 0 or -1 -> full distribution
     top_p: float = 1.0        # nucleus mass in (0, 1]; 1.0 -> disabled
     seed: int = 0
+    deadline_s: float | None = None  # wall-clock budget from submit()
+    start_index: int = 0      # tokens already delivered (failover resume)
+    # grammar constraint (serve/llm/structured.py): None, "json" /
+    # "json_object", a response_format dict, or a GrammarSpec
+    structured: Any = None
+    # stop sequences: token-id sequences that terminate the stream when
+    # they appear as a suffix of the generated tokens (the matched stop
+    # tokens ARE emitted, like EOS). Normalized to a tuple of tuples.
+    stop: Any = ()
+    # the reference's priority class: refused until preemption is ported
+    priority: Any = None
 
     def __post_init__(self):
+        if self.priority is not None:
+            raise TypeError(
+                "SamplingParams.priority is not ported yet: priority classes "
+                "come with preemption (PreemptionConfig), the next slice of "
+                "the port's engine"
+            )
         if not (1 <= self.max_new_tokens <= _MAX_NEW_TOKENS_CAP):
             raise ValueError(
                 f"max_new_tokens must be in [1, {_MAX_NEW_TOKENS_CAP}], "
                 f"got {self.max_new_tokens}"
             )
+        if self.start_index < 0:
+            raise ValueError("start_index must be >= 0")
         if not math.isfinite(self.temperature) or self.temperature < 0:
             raise ValueError(
                 f"temperature must be finite and >= 0, got {self.temperature}"
@@ -127,6 +178,15 @@ class SamplingParams:
             )
         if not 0.0 < self.top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        norm = []
+        for seq in self.stop:
+            if isinstance(seq, int):
+                seq = (seq,)
+            seq = tuple(int(t) for t in seq)
+            if not seq:
+                raise ValueError("stop sequences must be non-empty")
+            norm.append(seq)
+        object.__setattr__(self, "stop", tuple(norm))
 
 
 @dataclass(frozen=True)
@@ -154,6 +214,14 @@ class EngineConfig:
     # None -> the model config's own; "int8" | "fp8": quantized weights and
     # paged pool on the quantized kernels
     quantization: str | None = None
+    # speculative decoding: > 0 drafts up to k tokens a row on the host
+    # (``drafter``) and scores the [B, k+1] window in one verify step,
+    # committing the accepted drafts and one corrected token (1..k+1);
+    # lossless, exact-match against the keyed sampler
+    speculative_k: int = 0
+    # Drafter | "ngram" | None (None drafts nothing); read only when
+    # speculative_k > 0
+    drafter: Any = "ngram"
     # None -> cuda:0 (raises without a card); "cpu" only when asked
     device: Any = None
 
@@ -187,11 +255,14 @@ class _Request:
     __slots__ = (
         "id", "prompt", "sampling", "out", "generated", "reserved_blocks",
         "drawn_blocks", "prefill_done", "started", "table_np", "table_key",
-        "done",
+        "done", "deadline",
         # dispatch-ahead decode: dispatched-but-unreconciled steps that
         # include this row, and whether its KV blocks went back to the
         # pool (exactly-once release under the lag)
         "inflight", "blocks_released",
+        # grammar-constrained decoding: the request's structured.FSMCursor,
+        # or None when unconstrained
+        "fsm",
     )
 
     def __init__(self, req_id, prompt, sampling: SamplingParams):
@@ -209,6 +280,9 @@ class _Request:
         self.done = False
         self.inflight = 0
         self.blocks_released = False
+        self.fsm = None
+        self.deadline = (time.monotonic() + sampling.deadline_s
+                         if sampling.deadline_s is not None else None)
 
     @property
     def total_len(self) -> int:
@@ -294,6 +368,14 @@ class LLMEngine:
             # lock, from the cache): the executor's export, metered
             self.cache.demote_fn = lambda ids: self._metered_export(
                 ids, "demote")
+        if cfg.speculative_k < 0:
+            raise ValueError("speculative_k must be >= 0")
+        self._drafter = (build_drafter(cfg.drafter)
+                         if cfg.speculative_k > 0 else None)
+        self._spec_drafted_total = 0    # draft tokens proposed
+        self._spec_accepted_total = 0   # draft tokens accepted by verify
+        self._spec_committed_total = 0  # tokens emitted by verify steps
+        self._deadline_total = 0
         self._batch_buckets = cfg.batch_buckets or pow2_buckets(
             1, cfg.max_batch_size
         )
@@ -331,6 +413,7 @@ class LLMEngine:
         # chunked prefill calls alike)
         self.num_prefill_calls = 0
         self.num_decode_steps = 0
+        self.num_verify_steps = 0       # speculative verify steps
 
     # ---------------- public API ----------------
 
@@ -361,12 +444,34 @@ class LLMEngine:
                 f"request needs {need} KV blocks "
                 f"but the pool only has {self.cache.cfg.usable_blocks}"
             )
+        # grammar constraint: compiled (LRU-cached) and the cursor
+        # positioned outside the lock; a bad grammar raises GrammarError
+        # (a ValueError) here, at submit
+        fsm = None
+        spec = structured.parse_response_format(sampling.structured)
+        if spec is not None:
+            dfa = structured.compile_grammar(
+                spec, self.model_cfg.vocab_size, self.cfg.eos_id
+            )
+            fsm = structured.FSMCursor(dfa)
+            if sampling.start_index > 0:
+                # failover resume: replay the already-delivered tokens
+                # (the prompt tail) so the cursor lands where the dead
+                # replica's stood
+                for t in prompt[-sampling.start_index:]:
+                    if not fsm.advance(t):
+                        raise structured.GrammarError(
+                            f"resumed prefix rejected by the grammar at "
+                            f"token {t} (response_format mismatch on "
+                            "resume?)"
+                        )
         if self._failed is not None:
             raise self._failed
         with self._lock:
             if self._stopped:
                 raise RuntimeError("engine is shut down")
             req = _Request(self._next_id, prompt, sampling)
+            req.fsm = fsm
             self._next_id += 1
             self._waiting.append(req)
             self._work.notify_all()
@@ -389,10 +494,12 @@ class LLMEngine:
         return list(stream)
 
     def step(self) -> bool:
-        """One scheduler iteration: admit what fits, then EITHER one
-        prefill call OR one batched decode step. Returns False when idle
-        (nothing waiting, running or in flight)."""
+        """One scheduler iteration: expire deadlines, admit what fits,
+        then EITHER one prefill call OR one batched decode (or verify)
+        step. Returns False when idle (nothing waiting, running or in
+        flight)."""
         with self._lock:
+            self._expire_deadlines_locked()
             self._admit_locked()
             if self._prefilling and (
                 self.last_step_kind != "prefill"
@@ -453,6 +560,18 @@ class LLMEngine:
                 "prefix_hit_rate": hit / max(1, hit + computed),
                 "host_sync_bytes_total": self._sync_bytes_total,
                 "decode_inflight": 1 if self._pending is not None else 0,
+                "deadline_exceeded_total": self._deadline_total,
+                "spec_steps": self.num_verify_steps,
+                "spec_drafted_tokens": self._spec_drafted_total,
+                "spec_accepted_tokens": self._spec_accepted_total,
+                "spec_committed_tokens": self._spec_committed_total,
+                "spec_accept_rate": (self._spec_accepted_total
+                                     / max(1, self._spec_drafted_total)),
+                "spec_committed_per_step": (self._spec_committed_total
+                                            / max(1, self.num_verify_steps)),
+                "structured_running": sum(
+                    1 for r in self._running if r.fsm is not None),
+                "grammar_cache": structured.cache_stats(),
                 "failed": self._failed is not None,
             }
 
@@ -573,6 +692,22 @@ class LLMEngine:
             self._waiting.remove(r)
         r.done = True  # before release: an in-flight row defers it
         self._release_blocks_locked(r)
+
+    def _expire_deadlines_locked(self) -> None:
+        """Evict every request whose deadline passed (blocks back once,
+        deferred past an in-flight step as any eviction), fail its stream
+        with ``DeadlineExceededError`` and end it."""
+        now = time.monotonic()
+        expired = [r for r in (*self._waiting, *self._prefilling,
+                               *self._running)
+                   if r.deadline is not None and now >= r.deadline]
+        for r in expired:
+            self._evict_locked(r)
+            self._deadline_total += 1
+            r.out.put(DeadlineExceededError(
+                f"request {r.id!r} deadline ({r.sampling.deadline_s}s) "
+                f"expired after {len(r.generated)} tokens"))
+            r.out.put(_DONE)
 
     def _try_admit_one_locked(self, req: _Request) -> bool:
         """Reserve the request's worst-case blocks (prompt +
@@ -759,9 +894,31 @@ class LLMEngine:
                     < r.sampling.max_new_tokens]
 
         batch = eligible()
+        # speculative draft-and-verify: drafting needs the rows' committed
+        # tokens on the host, so a verify step is never dispatched ahead.
+        # When any row drafts, collapse the lag, re-draft on the
+        # reconciled state and run ONE synchronous verify step; when no
+        # row drafts, the plain lag-1 path below runs untouched
+        if self._drafter is not None and batch:
+            proposals = self._propose_drafts_locked(batch)
+            if proposals is not None:
+                if pending is not None:
+                    self._reconcile_locked(pending)
+                    pending = None
+                    batch = eligible()
+                    proposals = (self._propose_drafts_locked(batch)
+                                 if batch else None)
+                if batch and proposals is not None:
+                    self._verify_locked(batch, proposals)
+                    return
         # list equality is element identity here: the same _Request
-        # objects in the same order <=> nothing joined, finished or left
-        steady = pending is not None and batch == pending.batch
+        # objects in the same order <=> nothing joined, finished or left.
+        # A grammar-constrained row collapses the lag every step: the mask
+        # of step N+1 is a function of the FSM state after step N's token,
+        # which exists on the host only once N's ids are synced
+        constrained = any(r.fsm is not None for r in batch)
+        steady = (pending is not None and batch == pending.batch
+                  and not constrained)
         if pending is not None and not steady:
             self._reconcile_locked(pending)
             pending = None
@@ -834,6 +991,126 @@ class LLMEngine:
                 self._emit_token_locked(r, int(toks[i]))
         self._running = [r for r in self._running if not r.done]
 
+    def _propose_drafts_locked(self, batch: list) -> list[list[int]] | None:
+        """Up to ``speculative_k`` draft tokens a row from the drafter,
+        clamped to the row's remaining budget minus one (so the committed
+        tokens, the accepted drafts and one corrected token, never pass
+        ``max_new_tokens``, and every speculative K/V write stays inside
+        the row's reservation), truncated at the first out-of-vocab id and,
+        for a constrained row, at the first token its grammar rejects.
+        None when no row drafted anything."""
+        k = self.cfg.speculative_k
+        V = self.model_cfg.vocab_size
+        out: list[list[int]] = []
+        any_draft = False
+        for r in batch:
+            k_eff = min(k, r.sampling.max_new_tokens - len(r.generated)
+                        - r.inflight - 1)
+            clean: list[int] = []
+            if k_eff > 0:
+                for t in self._drafter.propose(r.prompt, r.generated, k_eff):
+                    t = int(t)
+                    if not 0 <= t < V or len(clean) >= k_eff:
+                        break
+                    clean.append(t)
+                if r.fsm is not None and clean:
+                    clean = r.fsm.filter_draft(clean)
+            out.append(clean)
+            any_draft = any_draft or bool(clean)
+        return out if any_draft else None
+
+    def _verify_locked(self, batch: list, proposals: list[list[int]]) -> None:
+        """One synchronous verify step over ``batch`` (the lag is
+        collapsed): stage the [B, W] window (column 0 each row's last
+        committed token, then its drafts; W = speculative_k + 1 for every
+        step of the engine), replay the verify signature's graph, sync the
+        packed [B, W + 1] verdicts at lag 0 (the next window's drafts need
+        them) and emit 1..draft_len + 1 tokens a row. EOS inside a window
+        stops that row's emission there; its blocks go back once, through
+        the completion path (``inflight`` is 0 under a verify)."""
+        bs = self.cfg.block_size
+        W = self.cfg.speculative_k + 1
+        draft_lens = [len(p) for p in proposals]
+        self._apply_promotions_locked()
+        pairs = []
+        for r, dl in zip(batch, draft_lens):
+            # the window writes K/V at total_len - 1 .. total_len - 1 + dl
+            # (padding columns go to the garbage block)
+            eff = r.total_len + dl
+            r.drawn_blocks += self.cache.ensure_capacity(r.id, eff)
+            cow = self.cache.prepare_write(r.id, r.total_len - 1, eff)
+            r.drawn_blocks += len(cow)
+            pairs.extend(cow)
+        self.executor.copy_blocks(pairs)
+        B = pad_to_bucket(len(batch), self._batch_buckets)
+        # the table spans what each row HOLDS: a rejected window may have
+        # appended blocks past this window's end
+        ctx = pad_to_bucket(
+            max(max(r.total_len + dl, self.cache.num_allocated(r.id) * bs)
+                for r, dl in zip(batch, draft_lens)),
+            self._length_buckets,
+        )
+        nb = ctx // bs
+        tokens = self._scratch_buf("vf_tokens", (B, W), np.int32)
+        starts = self._scratch_buf("vf_starts", (B,), np.int32)
+        dlen = self._scratch_buf("vf_dlen", (B,), np.int32)
+        tables = self._scratch_buf("vf_tables", (B, nb), np.int32)
+        # reused buffers: re-zero padding (a stale table row could point
+        # at blocks now owned by a live sequence)
+        tokens[:] = 0
+        starts[len(batch):] = 0
+        dlen[len(batch):] = 0
+        tables[len(batch):] = 0
+        for i, (r, props) in enumerate(zip(batch, proposals)):
+            tokens[i, 0] = r.generated[-1] if r.generated else r.prompt[-1]
+            tokens[i, 1:1 + len(props)] = props
+            starts[i] = r.total_len - 1
+            dlen[i] = len(props)
+            tables[i] = self._table_for(r, nb)
+        sample = self._sample_args_locked(batch, B)
+        if "mask" in sample:
+            # one allow-mask per column: column s is sampled from the FSM
+            # state after consuming the row's first s drafts
+            vf_mask = self._scratch_buf(
+                "vf_mask", (B, W, mask_words(self.model_cfg.vocab_size)),
+                np.uint32)
+            vf_mask[:] = 0xFFFFFFFF
+            for i, (r, props) in enumerate(zip(batch, proposals)):
+                if r.fsm is not None:
+                    r.fsm.stage_verify_masks(vf_mask[i], props)
+            sample["mask"] = vf_mask
+        packed_dev = self.executor.verify_step(tokens, starts, dlen, tables,
+                                               sample=sample)
+        packed = self._sync_verify_locked(packed_dev, len(batch))
+        # the sync proves every earlier dispatch executed
+        self.cache.flush_quarantine()
+        accepted = committed_total = 0
+        for i, (r, dl) in enumerate(zip(batch, draft_lens)):
+            # the device gives 1 <= committed <= dl + 1; clamped so a bad
+            # verdict can never overrun the budget
+            committed = max(1, min(int(packed[i, 0]), dl + 1))
+            accepted += committed - 1
+            for j in range(committed):
+                self._emit_token_locked(r, int(packed[i, 1 + j]))
+                committed_total += 1
+                if r.done:
+                    break
+        self._running = [r for r in self._running if not r.done]
+        self.num_verify_steps += 1
+        self._spec_drafted_total += sum(draft_lens)
+        self._spec_accepted_total += accepted
+        self._spec_committed_total += committed_total
+
+    def _sync_verify_locked(self, packed_dev, rows: int) -> np.ndarray:
+        """The verify step's device->host sync: its packed [B, W + 1] int32
+        verdicts, metered and recorded as kind "verify" at lag 0."""
+        packed = self.executor.sync_verify(packed_dev)
+        self._sync_bytes_total += packed.nbytes
+        self._flight.append({"kind": "verify", "batch": rows,
+                             "sync_bytes": int(packed.nbytes),
+                             "sync_lag": 0})
+        return packed
+
     def _sync_tokens_locked(self, ids, kind: str, rows: int, *,
                             lag: int) -> np.ndarray:
         """THE device->host sync: a step's O(batch) int32 ids, metered.
@@ -849,7 +1126,10 @@ class LLMEngine:
 
     def _sample_args_locked(self, batch: list, B: int) -> dict:
         """Per-row sampling controls as [B] host arrays; padding rows are
-        greedy so an all-greedy batch skips the sort."""
+        greedy so an all-greedy batch skips the sort. A batch that holds a
+        grammar-constrained row adds ``mask``, [B, words] uint32 allow-sets
+        (all-ones for the other rows, on which the mask is the identity);
+        an unconstrained batch stages none."""
         seeds = self._scratch_buf("sp_seeds", (B,), np.int64)
         temp = self._scratch_buf("sp_temp", (B,), np.float32)
         top_k = self._scratch_buf("sp_top_k", (B,), np.int32)
@@ -864,8 +1144,18 @@ class LLMEngine:
             temp[i] = sp.temperature
             top_k[i] = sp.top_k
             top_p[i] = sp.top_p
-        return {"seeds": seeds, "temperature": temp, "top_k": top_k,
-                "top_p": top_p}
+        out = {"seeds": seeds, "temperature": temp, "top_k": top_k,
+               "top_p": top_p}
+        if any(r.fsm is not None for r in batch):
+            mask = self._scratch_buf(
+                "sp_mask", (B, mask_words(self.model_cfg.vocab_size)),
+                np.uint32)
+            mask[:] = 0xFFFFFFFF
+            for i, r in enumerate(batch):
+                if r.fsm is not None:
+                    mask[i] = r.fsm.allow_row()
+            out["mask"] = mask
+        return out
 
     def _scratch_buf(self, name: str, shape: tuple, dtype) -> np.ndarray:
         """Reusable numpy staging buffer for one (name, shape) slot. Two
@@ -885,17 +1175,69 @@ class LLMEngine:
         return slot[slot[2]]
 
     def _emit_token_locked(self, r: _Request, tok: int) -> None:
+        is_eos = self.cfg.eos_id is not None and tok == self.cfg.eos_id
+        if r.fsm is not None and not is_eos:
+            # advance the grammar cursor BEFORE emitting: a rejection ends
+            # the stream without the token, so every prefix a client sees
+            # is grammar-valid
+            if not self._advance_fsm_locked(r, tok):
+                self._complete_locked(r)
+                return
         r.generated.append(tok)
         r.out.put(tok)
         if (
             len(r.generated) >= r.sampling.max_new_tokens
-            or (self.cfg.eos_id is not None and tok == self.cfg.eos_id)
+            or is_eos
+            or (r.fsm is not None and r.fsm.must_stop)
+            or self._hits_stop_locked(r)
         ):
-            r.done = True
-            r.out.put(_DONE)
-            # last: a row ending while its next token is in flight defers
-            # the free to that step's reconcile (exactly-once release)
-            self._release_blocks_locked(r)
+            self._complete_locked(r)
+
+    def _complete_locked(self, r: _Request) -> None:
+        r.done = True
+        r.out.put(_DONE)
+        # last: a row ending while its next token is in flight defers the
+        # free to that step's reconcile (exactly-once release)
+        self._release_blocks_locked(r)
+
+    def _advance_fsm_locked(self, r: _Request, tok: int) -> bool:
+        """Advance a request's grammar cursor on an emitted (host) token
+        id. The device masked the logits, so a rejection here means the
+        mask degraded: it is logged and ends the stream, never emitted."""
+        try:
+            ok = r.fsm.advance(tok)
+        except (IndexError, TypeError, ValueError) as e:
+            logger.error("grammar FSM advance failed for %r on token %d: %r",
+                         r.id, tok, e)
+            return False
+        if not ok:
+            logger.warning(
+                "grammar rejected sampled token %d for %r (state=%d, "
+                "dead=%s): terminating the stream early",
+                tok, r.id, r.fsm.state, r.fsm.dead)
+        return ok
+
+    def _hits_stop_locked(self, r: _Request) -> bool:
+        """True when the token just emitted completes one of the request's
+        stop sequences. The match spans the failover resume boundary: a
+        resumed request's delivered tokens are its prompt's last
+        ``start_index`` tokens, so a stop sequence straddling the kill
+        point still fires."""
+        stops = r.sampling.stop
+        if not stops:
+            return False
+        gen = r.generated
+        si = r.sampling.start_index
+        for seq in stops:
+            L = len(seq)
+            if L <= len(gen):
+                if tuple(gen[-L:]) == seq:
+                    return True
+            else:
+                need = L - len(gen)
+                if si >= need and tuple(r.prompt[-need:]) + tuple(gen) == seq:
+                    return True
+        return False
 
     def _fan_out_locked(self, err: BaseException) -> None:
         """Fail every live stream with ``err`` and return all blocks."""

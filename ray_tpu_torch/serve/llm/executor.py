@@ -19,12 +19,21 @@ the copy reading it executed. A decode step fed from the previous step's
 ids (the steady state of the pipeline) copies them device to device into
 its static tokens after that upload, so the feed never visits the host.
 
+A verify step (speculative decoding) stages its [B, W] window, starts,
+draft lengths and tables, the sampling controls tiled to [B, W] with a
+keyed draw per column (positions starts + 1 + s) and, for a batch with a
+grammar-constrained row, a [B, W, words] allow-mask, the same way: one
+pinned buffer and one H2D into its signature's static buffer; a decode
+or prefill step of such a batch adds the [B, words] mask.
+
 The sync. Right after each step, a ``non_blocking`` copy of its [B] ids
 into a pinned slot is queued and a CUDA event recorded behind it
 (``StepIds``). ``sync_tokens`` waits on that event, never on the stream,
 so syncing step N waits for step N only, not for step N+1 dispatched
 after it. Decode slots alternate two per batch size, so step N's slot
-survives the dispatch of N+1; prefill has its own pair (it syncs at once).
+survives the dispatch of N+1; prefill has its own pair (it syncs at once),
+and so does a verify step, whose packed [B, W + 1] verdicts come back the
+same way (``sync_verify``, at once).
 
 Block moves. The prefix cache's copy-on-write (``copy_blocks``) runs on
 the device; the host tier's demote capture and ``export_prefix``
@@ -183,23 +192,44 @@ class SingleDeviceExecutor:
     def _sample_values(self, sample: dict, positions: np.ndarray) -> dict:
         """The staged sampling inputs of a step that samples: controls and
         the keyed draws of the tokens at ``positions``, made for the rows
-        that sample (a greedy row's draw is never read; it stays 0)."""
-        out = {n: sample[n] for n in ("temperature", "top_k", "top_p")}
+        that sample (a greedy row's draw is never read; it stays 0).
+        ``positions`` [B], or [B, W] for a verify window: each row's
+        controls are then tiled across its W columns."""
         rows = ~greedy_rows(sample)
-        out["uniform"] = np.zeros(len(positions), np.float32)
-        out["uniform"][rows] = keyed_uniform(sample["seeds"][rows],
-                                             positions[rows]).numpy()
+        shape = positions.shape
+        out = {n: np.broadcast_to(
+                   np.asarray(sample[n]).reshape(-1, *([1] * (len(shape) - 1))),
+                   shape)
+               for n in ("temperature", "top_k", "top_p")}
+        uniform = np.zeros(shape, np.float32)
+        if rows.any():
+            at = positions[rows]
+            seeds = np.broadcast_to(
+                np.asarray(sample["seeds"])[rows].reshape(
+                    -1, *([1] * (len(shape) - 1))), at.shape)
+            uniform[rows] = keyed_uniform(seeds.reshape(-1),
+                                          at.reshape(-1)).numpy().reshape(
+                                              at.shape)
+        out["uniform"] = uniform
         return out
 
+    @staticmethod
+    def _mask(sample) -> np.ndarray | None:
+        """The grammar allow-mask of ``sample`` as int32 words (uint32 bit
+        patterns), or None for an unconstrained step."""
+        mask = None if sample is None else sample.get("mask")
+        return None if mask is None else np.asarray(mask).view(np.int32)
+
     def _ids(self, name: str, dev: torch.Tensor) -> StepIds:
-        """Queue the copy of a step's ids to the host behind the step."""
+        """Queue the copy of a step's int32 output ([B] ids, or a verify
+        step's [B, W + 1] verdicts) to the host behind the step."""
         if not self._on_card:
             return StepIds(dev)
-        key = (name, dev.shape[0])
+        key = (name, tuple(dev.shape))
         pair = self._slots.get(key)
         if pair is None:
             pair = self._slots[key] = [
-                (torch.empty(dev.shape[0], dtype=torch.int32,
+                (torch.empty(dev.shape, dtype=torch.int32,
                              pin_memory=True), torch.cuda.Event())
                 for _ in range(2)
             ] + [1]
@@ -224,13 +254,18 @@ class SingleDeviceExecutor:
             fields += sample_fields(B)
             at = lengths if starts is None else starts + lengths
             values.update(self._sample_values(sample, at))
+        mask = self._mask(sample)
+        if mask is not None:
+            fields.append(("mask", mask.shape, np.int32))
+            values["mask"] = mask
         layout = Layout(fields)
         buf = torch.empty(layout.size, dtype=torch.int32, device=self.device)
         self._upload("prefill", layout, values, buf)
         dev = layout.views(buf)
         ids = self.fns.prefill(dev["tokens"], dev["lengths"], dev["tables"],
                                start=dev.get("starts"),
-                               sample=model_sample(dev, not greedy))
+                               sample=model_sample(dev, not greedy,
+                                                   mask is not None))
         return self._ids("prefill", ids)
 
     def prefill(self, tokens, lengths, tables, sample=None) -> StepIds:
@@ -256,8 +291,9 @@ class SingleDeviceExecutor:
                 "step dispatched last")
         B, nb = tables.shape
         greedy = sample is None or _all_greedy(sample)
-        g = self.fns.decode_graph(B, nb, not greedy)
-        values = {"positions": positions, "tables": tables}
+        mask = self._mask(sample)
+        g = self.fns.decode_graph(B, nb, not greedy, mask is not None)
+        values = {"positions": positions, "tables": tables, "mask": mask}
         values["tokens"] = 0 if fed else tokens
         if not greedy:
             values.update(self._sample_values(sample, positions + 1))
@@ -272,6 +308,33 @@ class SingleDeviceExecutor:
         g = self.stage_decode(tokens, positions, tables, sample)
         self._last_decode = self._ids("decode", g.run())
         return self._last_decode
+
+    def stage_verify(self, tokens, starts, draft_len, tables, sample=None):
+        """Copy one verify step's inputs (the [B, W] window, starts, draft
+        lengths, tables; the sampling controls tiled to [B, W] with the
+        keyed draws of positions starts + 1 + s; a [B, W, words] mask)
+        into its signature's static buffer in one pinned upload, and
+        return the graph, ready to ``run``."""
+        B, W = tokens.shape
+        nb = tables.shape[1]
+        greedy = sample is None or _all_greedy(sample)
+        mask = self._mask(sample)
+        g = self.fns.verify_graph(B, nb, W, not greedy, mask is not None)
+        values = {"tokens": tokens, "starts": starts, "draft_len": draft_len,
+                  "tables": tables, "mask": mask}
+        if not greedy:
+            at = starts[:, None] + 1 + np.arange(W, dtype=starts.dtype)
+            values.update(self._sample_values(sample, at))
+        self._upload("verify", g.layout, values, g.packed)
+        return g
+
+    def verify_step(self, tokens, starts, draft_len, tables,
+                    sample=None) -> StepIds:
+        """One speculative verify step (see ``stage_verify``): the
+        signature's graph replayed on a card, the eager step on the CPU;
+        its packed [B, W + 1] verdicts come back through ``sync_verify``."""
+        g = self.stage_verify(tokens, starts, draft_len, tables, sample)
+        return self._ids("verify", g.run())
 
     # ---------------- block moves ----------------
 
@@ -411,3 +474,18 @@ class SingleDeviceExecutor:
         if toks.ndim != 1:
             raise RuntimeError(f"sync path must move [B] ids, got {toks.shape}")
         return toks
+
+    def sync_verify(self, ids: StepIds) -> np.ndarray:
+        """The same device->host sync for a verify step: its packed [B,
+        W + 1] int32 verdicts (committed count, then the window's target
+        tokens), never logits, one transfer a step."""
+        if ids.event is not None:
+            ids.event.synchronize()
+            packed = ids.host.numpy().copy()
+        else:
+            packed = ids.dev.numpy().copy()
+        if packed.ndim != 2 or packed.dtype != np.int32:
+            raise RuntimeError(
+                f"verify sync must move [B, W + 1] int32, got "
+                f"{packed.dtype} {packed.shape}")
+        return packed
