@@ -93,14 +93,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    unconstrained rows): grammar-valid constrained streams, the stop row
    cut after its stop sequence, the unconstrained rows byte for byte
    those of the batch with no constraint;
-11. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+11. serves priority traffic on Llama-125M (``engine_profile.
+   priority_workload``: 4 batch-class streams of 700 prompt and 160 new
+   tokens on 256 blocks of 16, then two bursts of 4 interactive turns;
+   prefix caching and a host tier that holds the traffic), preemption
+   off and on, bf16: interactive TTFT p50/p99, the unloaded baseline
+   (each turn alone), batch completion and tokens/s, parks, demotes,
+   promotes, demote syncs, graphs by kind, each park's and resume's host
+   ms; the counts must equal a CPU rehearsal's at tiny widths, every
+   stream reach its budget, every parked stream resume, the pool be
+   whole; a traced pass counts B4/B5 on the device; bf16 divergences
+   of a greedy stream between off and on are printed with their top-2
+   gap (at 0.05 or more a fault), and at f32 every greedy stream of the
+   preemption-on engine must equal the preemption-off engine's; every
+   token of the sampled stream (parked and resumed) of either engine
+   must be its keyed draw's on logits recomputed alone, to 1e-4 of
+   probability mass at f32 and 0.05 in bf16;
+12. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
-   families' engine and training paths, the prefix path and the
-   speculative path ``llama_spec``; a paged
+   families' engine and training paths, the prefix path, the
+   speculative path ``llama_spec`` and the preemption path
+   ``llama_preempt``; a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-12. for each family, on its training phase's first weights and batch
+13. for each family, on its training phase's first weights and batch
    ([16, 1025]), holds the loss and every gradient through the CUDA
    kernels against the plain backend's (LOSS_TOL, GRAD_REL_TOL); then
    ``{"ok": true, "device": ...}`` last.
@@ -120,6 +137,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1687,9 +1705,9 @@ def pool_whole(engine, tag) -> None:
         raise AssertionError(f"{tag}: pool not whole: {snap}")
 
 
-def top2_gap(torch, engine, tokens) -> float:
-    """The gap between the two largest next-token logits after ``tokens``
-    on the engine's model (a prefill into a scratch pool of its own)."""
+def next_logits(torch, engine, tokens):
+    """The next-token logits after ``tokens`` on the engine's model ([V]
+    f32): a prefill into a scratch pool of its own."""
     from ray_tpu_torch.models.families import kv_heads
     from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
 
@@ -1706,8 +1724,41 @@ def top2_gap(torch, engine, tokens) -> float:
                           device="cuda")[None, :]
     logits, _, _ = engine.executor.model.prefill(cache.k, cache.v, t, n,
                                                  tables)
-    top = torch.topk(logits[0], 2).values
+    return logits[0].float()
+
+
+def top2_gap(torch, engine, tokens) -> float:
+    """The gap between the two largest next-token logits after ``tokens``
+    on the engine's model."""
+    top = torch.topk(next_logits(torch, engine, tokens), 2).values
     return float(top[0] - top[1])
+
+
+def draw_slip(torch, engine, tokens, sp, token) -> float:
+    """For a row sampled under ``sp`` (temperature, top-k, top-p, seed)
+    that drew ``token`` after ``tokens``: how far, in probability mass,
+    its keyed draw for position ``len(tokens)`` lies outside ``token``'s
+    interval of the CDF (``ops/sampling._sampled_rows``'s) on the
+    next-token logits after ``tokens``; 0 where the draw picks
+    ``token``. Two numerically different paths may draw different tokens
+    only where the draw lies near an edge, so a draw of the wrong key or
+    position shows as a slip far above the logits' noise."""
+    from ray_tpu_torch.ops.sampling import keyed_uniform
+
+    scaled = next_logits(torch, engine, tokens).cpu() / max(sp.temperature,
+                                                             1e-6)
+    srt, idx = torch.sort(scaled, descending=True, stable=True)
+    if sp.top_k > 0:
+        srt[sp.top_k:] = float("-inf")
+    probs = torch.softmax(srt, -1)
+    if 0.0 < sp.top_p < 1.0:
+        srt[(torch.cumsum(probs, -1) - probs) >= sp.top_p] = float("-inf")
+        probs = torch.softmax(srt, -1)
+    cdf = torch.cumsum(probs, -1)
+    u = float(keyed_uniform([sp.seed & 0xFFFFFFFF], [len(tokens)])[0])
+    rank = int((idx == token).nonzero()[0, 0])
+    lo = float(cdf[rank - 1]) if rank else 0.0
+    return max(lo - u, u - float(cdf[rank]), 0.0)
 
 
 def spec_passes(torch, engine, prompts, params, tag, card) -> dict:
@@ -2075,6 +2126,398 @@ def structured_phase(torch, card) -> None:
         del eng
 
 
+# ---------------------------------------------------------- priority phase
+
+PRIORITY_COUNTS = ("preemptions_total", "kv_demoted_blocks",
+                   "kv_promoted_blocks", "prefix_evicted_blocks",
+                   "prefix_hit_tokens", "prefill_tokens_total")
+# a bf16 greedy row diverging at a larger top-2 logit gap is a fault; a
+# bf16 sampled token whose draw lies further outside its CDF interval, in
+# probability mass (``draw_slip``), is one too
+GAP_FAULT = 0.05
+# at f32 a greedy row must not diverge at all, and a sampled token's draw
+# may lie only this far outside its interval: the f32 logits of one row
+# move about 4e-6 with the batch around it (``batch_dependence``; B4's
+# split count follows the batch's table width), which reorders near-tied
+# tokens in the sort and so moves an interval by a neighbour's mass or
+# two (about 3e-5 each with random weights), while a wrong key or
+# position puts the draw a random distance (most of the mass) away
+DRAW_NOISE = 1e-4
+
+
+def rehearsal_config(torch):
+    """Llama at tiny widths but the full model's vocabulary and sequence
+    length (so the workload's prompts and lengths are the card's), f32:
+    the scheduling does not depend on the width."""
+    from ray_tpu_torch.models.families import family
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    full = family("llama").full()
+    return dataclasses.replace(LlamaConfig.tiny(vocab_size=full.vocab_size),
+                               max_seq_len=full.max_seq_len,
+                               dtype=torch.float32)
+
+
+class ParkClock:
+    """Time, on the host clock, each park (``_preempt_one_locked`` that
+    parked a stream) and each resume (the ``_maybe_resume_locked`` call
+    that re-admitted it, plus the prefill call that recomputed its tail
+    and sampled its next token) of ``engine``, and count the demote
+    exports (one device-to-host sync each, ``_metered_export`` kind
+    "demote"). ``parks`` holds (request id, tokens generated, decode
+    steps into the pass, ms); ``resumes`` (request id, admit ms, prefill ms).
+    """
+
+    def __init__(self, engine):
+        self.engine, self.parks, self.resumes = engine, [], []
+        self.demote_syncs = 0
+        self._admit_ms = {}
+        self._d0 = engine.num_decode_steps
+
+    def __enter__(self):
+        eng = self.engine
+        park, resume = eng._preempt_one_locked, eng._maybe_resume_locked
+        prefill, demote = eng._prefill_chunk_locked, eng.cache.demote_fn
+
+        def timed_park(r, now):
+            t0 = time.perf_counter()
+            ok = park(r, now)
+            if ok:
+                self.parks.append((r.id, len(r.generated),
+                                   eng.num_decode_steps - self._d0,
+                                   1e3 * (time.perf_counter() - t0)))
+            return ok
+
+        def timed_resume():
+            parked = list(eng._preempted)
+            t0 = time.perf_counter()
+            resume()
+            ms = 1e3 * (time.perf_counter() - t0)
+            for r in parked:
+                if r not in eng._preempted:
+                    self._admit_ms[r.id] = ms
+
+        def timed_prefill():
+            rows = [r for r in eng._prefilling[:eng.cfg.max_prefill_batch]
+                    if r.pending_resume is not None]
+            t0 = time.perf_counter()
+            prefill()
+            ms = 1e3 * (time.perf_counter() - t0)
+            for r in rows:
+                if r.pending_resume is None:  # its chain is resident again
+                    self.resumes.append((r.id, self._admit_ms.pop(r.id),
+                                         ms))
+
+        def counted(ids):
+            self.demote_syncs += 1
+            return demote(ids)
+
+        eng._preempt_one_locked = timed_park
+        eng._maybe_resume_locked = timed_resume
+        eng._prefill_chunk_locked = timed_prefill
+        eng.cache.demote_fn = counted
+        self._demote = demote
+        return self
+
+    def __exit__(self, *exc):
+        for name in ("_preempt_one_locked", "_maybe_resume_locked",
+                     "_prefill_chunk_locked"):
+            delattr(self.engine, name)
+        self.engine.cache.demote_fn = self._demote
+
+
+def priority_pass(torch, engine, work) -> dict:
+    """One pass of ``engine_profile.priority_serve`` under a ParkClock:
+    the run, the engine's PRIORITY_COUNTS moves, its prefill calls and
+    decode steps, the parks, resumes and demote syncs, and the decode
+    graphs captured during the pass by kind."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    st0, fns = engine.stats(), engine.fns
+    calls0 = (engine.num_prefill_calls, engine.num_decode_steps)
+    graphs0 = fns.graphs_by_kind()
+    with ParkClock(engine) as clock:
+        run = ep.priority_serve(torch, engine, work)
+    st = engine.stats()
+    run["counts"] = {k: st[k] - st0[k] for k in PRIORITY_COUNTS}
+    run["counts"]["prefill_calls"] = engine.num_prefill_calls - calls0[0]
+    run["counts"]["decode_steps"] = engine.num_decode_steps - calls0[1]
+    # parks and resumes by the request's place in the pass
+    where = {rid: i for i, rid in enumerate(run["ids"])}
+    run["parks"] = [(where[rid], *rest) for rid, *rest in clock.parks]
+    run["resumes"] = [(where[rid], *rest) for rid, *rest in clock.resumes]
+    run["counts"]["parked"] = [i for i, *_ in run["parks"]]
+    run["demote_syncs"] = clock.demote_syncs
+    now = fns.graphs_by_kind()
+    run["new_graphs"] = {k: now[k] - graphs0.get(k, 0) for k in now}
+    run["preempted"] = st["preempted"]
+    return run
+
+
+def priority_checks(engine, run, work, tag) -> None:
+    """Every stream at its budget, nothing parked at the end, every parked
+    stream resumed, the pool whole (no block held, reserved or
+    quarantined; every block free after ``release_all``, which also
+    empties the host tier: the next pass starts cold)."""
+    params = work["batch"][1] + [s for _, _, ss in work["bursts"]
+                                 for s in ss]
+    for o, sp in zip(run["outs"], params):
+        if len(o) != sp.max_new_tokens:
+            raise AssertionError(f"{tag}: a stream of {len(o)} tokens, "
+                                 f"budget {sp.max_new_tokens}")
+    resumed = sorted(rid for rid, *_ in run["resumes"])
+    if run["preempted"] or sorted(run["counts"]["parked"]) != resumed:
+        raise AssertionError(f"{tag}: parked {run['counts']['parked']}, "
+                             f"resumed {resumed}, {run['preempted']} left")
+    c = engine.cache
+    snap = c.debug_snapshot()
+    if (c.used_blocks or c.reserved_blocks or snap["live_sequences"]
+            or snap["quarantined_blocks"]):
+        raise AssertionError(f"{tag}: pool not whole: {snap}")
+    c.release_all()
+    if (c.free_blocks != c.cfg.usable_blocks or c.cached_blocks
+            or c.host_tier.blocks):
+        raise AssertionError(f"{tag}: pool not whole after release_all: "
+                             f"{c.debug_snapshot()}")
+
+
+def percentile(xs, q) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def priority_rehearsal(torch) -> dict:
+    """``priority_workload`` on the CPU at tiny widths (``rehearsal_
+    config``), preemption off and on: each engine's counts, which the
+    card's runs must equal."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    cfg = rehearsal_config(torch)
+    work = ep.priority_workload(cfg.vocab_size)
+    out = {}
+    for pre in (False, True):
+        eng = ep.make_priority_engine(preemption=pre, model_config=cfg,
+                                      device="cpu")
+        run = priority_pass(torch, eng, work)
+        priority_checks(eng, run, work, f"priority rehearsal[{pre}]")
+        out[pre] = run["counts"]
+    return out
+
+
+def batch_dependence(torch, engine, prompts) -> float:
+    """How far the first-token logits of ``prompts[0]`` move with the
+    batch around it: one prefill call of it alone against one of the
+    first 4 ``prompts`` (same length) into free blocks of the idle pool,
+    max abs difference."""
+    model, bs = engine.executor.model, engine.cache.cfg.block_size
+    n = len(prompts[0])
+    S = -(-n // bs) * bs
+    out = []
+    for B in (1, 4):
+        t = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+        t[:, :n] = torch.tensor(prompts[:B], dtype=torch.int32)
+        lengths = torch.full((B,), n, dtype=torch.int32, device="cuda")
+        tables = torch.arange(1, 1 + B * (S // bs), dtype=torch.int32,
+                              device="cuda").reshape(B, S // bs)
+        logits, _, _ = model.prefill(engine.cache.k, engine.cache.v, t,
+                                     lengths, tables)
+        out.append(logits[0].float())
+    return (out[0] - out[1]).abs().max().item()
+
+
+def divergences(torch, engine, prompts, params, outs, tag, max_gap,
+                max_slip) -> None:
+    """Print how many streams of the preemption-on engine equal the off
+    engine's (``outs[True]``, ``outs[False]``) and each greedy row's
+    divergence with the off engine's (``engine``'s) top-2 logit gap
+    there: at ``max_gap`` or more a fault. A sampled row is held token by
+    token instead, in both engines' streams: each token's ``draw_slip``
+    on ``engine``'s logits after the stream so far, recomputed alone,
+    must stay under ``max_slip``."""
+    same = sum(a == b for a, b in zip(outs[False], outs[True]))
+    log(f"{tag}: preemption-on streams equal off in {same} of "
+        f"{len(prompts)}")
+    for row, (a, b) in enumerate(zip(outs[False], outs[True])):
+        sp = params[row]
+        pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   None)
+        if sp.temperature > 0:
+            slips = {pre: [draw_slip(torch, engine, prompts[row] + o[:i],
+                                     sp, o[i]) for i in range(len(o))]
+                     for pre, o in ((False, a), (True, b))}
+            worst = {pre: max(range(len(v)), key=v.__getitem__)
+                     for pre, v in slips.items()}
+            log(f"{tag}: row {row} (sampled) "
+                + ("equal" if pos is None else f"diverges at generated "
+                   f"position {pos} (off {a[pos]}, on {b[pos]})")
+                + "; draw slips off/on: "
+                + ", ".join(f"{sum(x > 0 for x in slips[pre])} tokens off "
+                            f"their draw, worst {slips[pre][worst[pre]]:.4e}"
+                            f" at {worst[pre]}" for pre in (False, True)))
+            if any(slips[pre][worst[pre]] >= max_slip for pre in slips):
+                raise AssertionError(f"{tag}: row {row} has a token whose "
+                                     f"keyed draw lies outside its CDF "
+                                     f"interval by {max_slip} or more")
+            continue
+        if pos is None:
+            continue
+        gap = top2_gap(torch, engine, prompts[row] + a[:pos])
+        log(f"{tag}: row {row} (greedy) diverges at generated position "
+            f"{pos} (off {a[pos]}, on {b[pos]}); off top-2 logit gap there "
+            f"{gap:.4e}")
+        if gap >= max_gap:
+            raise AssertionError(f"{tag}: row {row} diverges at a top-2 gap "
+                                 f"of {gap}")
+
+
+def priority_phase(torch, card) -> dict:
+    """Priority traffic (``engine_profile.priority_workload``: 4 batch
+    streams of 700 prompt and 160 new tokens on a 256-block pool, then two
+    bursts of 4 interactive turns of 300 and 32 tokens) on Llama-125M at
+    full width and depth, preemption off and on (``engine_profile.
+    PREEMPTION``, pressure-only), bf16 then f32. For each bf16 engine a
+    warm-up pass, ``release_all``, a timed pass: interactive TTFT p50/p99
+    (host clock, submit to first token), batch completion and tokens/s,
+    parks, demotes, promotes, demote syncs, graphs by kind, each park's
+    and resume's host ms; its counts must equal the CPU rehearsal's
+    (``priority_rehearsal``), every stream its budget, every parked
+    stream resumed, the pool whole. The preemption-on engine's counted
+    pass (launch counts reset just before it, a ``torch.profiler`` trace)
+    is the path "llama_preempt": B5 12 x prefill calls, B4 12 x decode
+    steps. The unloaded baseline: each interactive prompt alone on the
+    idle engine. bf16 divergences of greedy streams between off and on
+    are printed with the off engine's top-2 logit gap (at or above
+    GAP_FAULT a fault); at f32 (B4 and B5 on f32 q, TF32 off) every
+    greedy stream of the on engine must equal the off engine's. The
+    sampled stream, parked and resumed, is held in both dtypes token by
+    token to its keyed draw (``draw_slip`` under GAP_FAULT in bf16,
+    DRAW_NOISE at f32)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    rehearsal = priority_rehearsal(torch)
+    log(f"priority rehearsal (CPU, tiny widths, {time.perf_counter() - t0:.2f}"
+        f" s): off {rehearsal[False]}; on {rehearsal[True]}")
+    on = rehearsal[True]
+    if (len(set(on["parked"])) < 2 or on["kv_promoted_blocks"] < 1
+            or rehearsal[False]["preemptions_total"]):
+        raise AssertionError(f"priority rehearsal: the workload parks "
+                             f"{on['parked']}, promotes "
+                             f"{on['kv_promoted_blocks']} blocks")
+    result, engines, outs = {}, {}, {}
+    for pre in (False, True):
+        torch.cuda.empty_cache()
+        tag = f"priority[llama bf16 preemption {'on' if pre else 'off'}]"
+        eng = ep.make_priority_engine(preemption=pre)
+        work = ep.priority_workload(eng.model_cfg.vocab_size)
+        t0 = time.perf_counter()
+        warm = priority_pass(torch, eng, work)
+        priority_checks(eng, warm, work, tag)
+        capture = {"seconds": time.perf_counter() - t0,
+                   "graphs": eng.fns.graphs_by_kind(),
+                   "capture_s": eng.fns.capture_seconds}
+        run = priority_pass(torch, eng, work)
+        priority_checks(eng, run, work, tag)
+        if run["counts"] != rehearsal[pre]:
+            raise AssertionError(f"{tag}: counts {run['counts']} != the "
+                                 f"CPU rehearsal's {rehearsal[pre]}")
+        nb = run["batch"]
+        inter = run["ttft"][nb:]
+        batch_s = max(run["done_s"][:nb])
+        batch_tok = sum(map(len, run["outs"][:nb]))
+        log(f"{tag}: interactive TTFT p50 {1e3 * percentile(inter, 0.5):.2f}"
+            f" ms, p99 {1e3 * percentile(inter, 0.99):.2f} ms (host clock, "
+            f"{len(inter)} requests, each {[round(1e3 * x, 2) for x in inter]})"
+            f"; batch streams done in {batch_s:.3f} s, "
+            f"{batch_tok / batch_s:.1f} tokens/s; pass {run['seconds']:.3f} "
+            f"s; counts {run['counts']} (= the CPU rehearsal's); demote "
+            f"syncs {run['demote_syncs']}; parks (request, generated, "
+            f"decode step, host ms) {[(a, b, c, round(d, 3)) for a, b, c, d in run['parks']]}"
+            f"; resumes (request, admit ms, prefill ms) "
+            f"{[(a, round(b, 3), round(c, 3)) for a, b, c in run['resumes']]}"
+            f"; graphs by kind after the warm-up pass {capture['graphs']} "
+            f"(captured in {capture['capture_s']:.3f} s), new in the timed "
+            f"pass {run['new_graphs']}; {card}")
+        result[pre] = run
+        engines[pre] = eng
+        outs[pre] = run["outs"]
+
+    # the counted pass: launches on the device from the trace
+    eng = engines[True]
+    tag = "priority[llama bf16 preemption on]"
+    pa.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        counted = priority_pass(torch, eng, work)
+    eager = dict(pa.LAUNCHES)
+    priority_checks(eng, counted, work, tag)
+    launches = dict.fromkeys(pa.LAUNCHES, 0)
+    launches.update(ep.paged_launches(prof))
+    n_layer = eng.model_cfg.n_layer
+    want = dict.fromkeys(launches, 0)
+    want["paged_decode"] = n_layer * counted["counts"]["decode_steps"]
+    want["paged_prefill"] = n_layer * counted["counts"]["prefill_calls"]
+    log(f"{tag}: counted pass: {counted['counts']}; launches on the device "
+        f"(trace) {launches} (expected {want}); eager wrapper launches "
+        f"{eager}; new graphs {counted['new_graphs']}")
+    if launches != want or counted["counts"] != rehearsal[True]:
+        raise AssertionError(f"{tag}: launch counts {launches} != {want}, "
+                             f"or counts {counted['counts']}")
+
+    # the unloaded baseline: each interactive prompt alone, idle engine
+    alone = []
+    for _, ps, ss in work["bursts"]:
+        for p, sp in zip(ps, ss):
+            one = ep.priority_serve(torch, engines[False],
+                                    {"batch": ([p], [sp]), "bursts": []})
+            alone.append(one["ttft"][0])
+            engines[False].cache.release_all()
+    log(f"priority[llama bf16]: unloaded interactive TTFT p50 "
+        f"{1e3 * percentile(alone, 0.5):.2f} ms, p99 "
+        f"{1e3 * percentile(alone, 0.99):.2f} ms (each alone on the idle "
+        f"engine, {[round(1e3 * x, 2) for x in alone]}); p99 with "
+        f"preemption / unloaded "
+        f"{percentile(result[True]['ttft'][nb:], 0.99) / percentile(alone, 0.99):.3f}"
+        f", without {percentile(result[False]['ttft'][nb:], 0.99) / percentile(alone, 0.99):.3f}"
+        f"; {card}")
+
+    # bf16: preemption on against off, each greedy divergence with the off
+    # engine's top-2 gap; the sampled row token by token to its draw
+    prompts = work["batch"][0] + [p for _, ps, _ in work["bursts"]
+                                  for p in ps]
+    params = work["batch"][1] + [s for _, _, ss in work["bursts"]
+                                 for s in ss]
+    divergences(torch, engines[False], prompts, params, outs,
+                "priority[llama bf16]", GAP_FAULT, GAP_FAULT)
+    del engines, eng
+    torch.cuda.empty_cache()
+
+    # f32: every greedy stream of the on engine equals the off engine's,
+    # every sampled token lies within DRAW_NOISE of its draw
+    f32, engines = {}, {}
+    for pre in (False, True):
+        eng = engines[pre] = ep.make_priority_engine(preemption=pre,
+                                                     dtype=torch.float32)
+        run = priority_pass(torch, eng, work)
+        priority_checks(eng, run, work, f"priority[llama f32 {pre}]")
+        if run["counts"] != rehearsal[pre]:
+            raise AssertionError(f"priority[llama f32]: counts "
+                                 f"{run['counts']} != {rehearsal[pre]}")
+        f32[pre] = run["outs"]
+    divergences(torch, engines[False], prompts, params, f32,
+                "priority[llama f32]", 0.0, DRAW_NOISE)
+    log(f"priority[llama f32]: the first-token logits of a burst's turn "
+        f"alone against in a batch of 4 differ by "
+        f"{batch_dependence(torch, engines[False], work['bursts'][1][1]):.4e}"
+        f" (max abs); {card}")
+    del engines, eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eager": eager}
+
+
 def profile_phase(torch, eng) -> None:
     """One more warm pass over the same requests under torch.profiler:
     device time by kernel, the device's busy share of the wall time, the
@@ -2291,6 +2734,13 @@ def main() -> int:
             eager["llama_spec"][base + suffix] = sp["eager"][base + suffix]
     spec_lossless_phase(torch, card)
     structured_phase(torch, card)
+
+    # the preemption path: Llama-125M bf16 under priority traffic, the
+    # counts reset just before its counted pass and read just after
+    paths = (*paths, "llama_preempt")
+    pre = priority_phase(torch, card)
+    launches["llama_preempt"], eager["llama_preempt"] = (pre["launches"],
+                                                        pre["eager"])
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")

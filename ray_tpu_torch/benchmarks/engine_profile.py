@@ -27,7 +27,9 @@ after the first would be a full prefix hit (what the cache costs on
 traffic that never hits is measured by ``chip_smoke.py``'s
 ``unshared_cost_phase``, on prompts drawn anew for each pass). Shared-prefix traffic is its
 own named workload, ``prefix_workload`` (the prefix phase of
-``chip_smoke.py``); this script adds no measurement of it.
+``chip_smoke.py``), and so is priority traffic, ``priority_workload``
+with ``make_priority_engine`` and its serving loop ``priority_serve`` (the
+priority phase); this script adds no measurement of either.
 
 It drives the engine through ``submit`` / ``step`` and reads its public
 ``stats()`` and ``last_step_kind`` only, so it measures any version of
@@ -61,6 +63,21 @@ FLOOD_PROMPTS, FLOOD_LENGTH = 12, 700
 # speculative-decoding traffic (spec_workload): 8 prompts, each a seeded
 # random motif of 16-48 tokens repeated to 200-800 tokens, 64 new tokens
 SPEC_MOTIF, SPEC_LENGTH, SPEC_NEW_TOKENS = (16, 48), (200, 800), 64
+# priority traffic (priority_workload): batch-class streams that hold most
+# of the pool (blocks_for(700 + 160) = 54 blocks each, 216 of 255), then
+# bursts of interactive chat turns (32 new tokens each), each submitted
+# once the engine has run PRIORITY_BURSTS[i][0] decode steps
+PRIORITY_ENGINE = dict(block_size=16, num_blocks=256, max_batch_size=8,
+                       prefill_chunk_tokens=256, seed=0)
+PRIORITY_BATCH = (4, 700, 160)   # streams, prompt tokens, new tokens
+PRIORITY_SEED = 2
+PRIORITY_BURSTS = ((8, 4, 300), (40, 4, 300))  # decode steps, requests, tokens
+PRIORITY_NEW_TOKENS = 32
+# pressure-only thresholds: the queue-wait and aging clocks out of reach, so
+# parks and resumes depend on the step sequence alone (and a rehearsal on
+# the CPU gives the card's counts)
+PREEMPTION = dict(kv_pressure=0.8, queue_wait_s=1e6, resume_pressure=0.7,
+                  aging_s=1e6)
 # the host launch API calls counted per decode step (CUPTI runtime names
 # may carry a version suffix)
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
@@ -137,6 +154,33 @@ def spec_workload(vocab_size: int, seed: int = 0,
     return prompts, params
 
 
+def priority_workload(vocab_size: int) -> dict:
+    """Priority traffic drawn from PRIORITY_SEED: ``batch``,
+    PRIORITY_BATCH's batch-class streams (long prompts, many new tokens;
+    stream 3, the first one parked, samples at temperature 0.8, top-p
+    0.9, seed 7, the rest are greedy), and
+    ``bursts``, one (decode steps, prompts, params) per PRIORITY_BURSTS
+    entry: interactive-class chat turns of 32 new tokens, greedy. Each
+    is (prompts, params)."""
+    import numpy as np
+
+    from ray_tpu_torch.serve.llm import SamplingParams
+
+    rng = np.random.default_rng(PRIORITY_SEED)
+    n, length, new = PRIORITY_BATCH
+    prompts = [rng.integers(0, vocab_size, length).tolist() for _ in range(n)]
+    params = [SamplingParams(max_new_tokens=new, priority="batch")
+              for _ in prompts]
+    params[3] = SamplingParams(max_new_tokens=new, priority="batch",
+                               temperature=0.8, top_p=0.9, seed=7)
+    turn = SamplingParams(max_new_tokens=PRIORITY_NEW_TOKENS,
+                          priority="interactive")
+    bursts = [(after, [rng.integers(0, vocab_size, tokens).tolist()
+                       for _ in range(count)], [turn] * count)
+              for after, count, tokens in PRIORITY_BURSTS]
+    return {"batch": (prompts, params), "bursts": bursts}
+
+
 def distinct_blocks(prompts, block_size: int) -> int:
     """Full prompt blocks of distinct content (chain) among ``prompts``:
     the most blocks a run of them can demote."""
@@ -186,6 +230,80 @@ def make_prefix_engine(quant=None, model="llama", **overrides):
                                   quantization=quant,
                                   **{**PREFIX_ENGINE, **overrides}),
                      auto_step=False)
+
+
+def make_priority_engine(dtype=None, preemption=True, model_config=None,
+                         device=None):
+    """The engine of ``priority_workload`` (``PRIORITY_ENGINE``, prefix
+    caching on) on Llama-125M at full width in ``dtype`` (None: bf16),
+    with a host tier that holds every block the traffic can make, and
+    ``PREEMPTION`` (``preemption=False``: none). ``model_config`` and
+    ``device`` replace the model and the card (the CPU rehearsal's)."""
+    from ray_tpu_torch.models.families import family, kv_heads
+    from ray_tpu_torch.serve.llm import EngineConfig, LLMEngine
+    from ray_tpu_torch.serve.llm.kv_transfer import KVLayout, dtype_name
+
+    cfg = model_config or family("llama").full()
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    bs = PRIORITY_ENGINE["block_size"]
+    layout = KVLayout(n_layer=cfg.n_layer, block_size=bs,
+                      n_kv_head=kv_heads(cfg), head_dim=cfg.head_dim,
+                      dtype=dtype_name(cfg.dtype))
+    n, length, new = PRIORITY_BATCH
+    blocks = n * ((length + new) // bs) + sum(
+        count * ((tokens + PRIORITY_NEW_TOKENS) // bs)
+        for _, count, tokens in PRIORITY_BURSTS)
+    engine = LLMEngine(EngineConfig(
+        model="llama", model_config=cfg, device=device,
+        host_cache_bytes=blocks * layout.record_bytes,
+        preemption=dict(PREEMPTION) if preemption else None,
+        **PRIORITY_ENGINE), auto_step=False)
+    if engine.cache.layout != layout:
+        raise AssertionError(f"{engine.cache.layout} != {layout}")
+    return engine
+
+
+def priority_serve(torch, engine, work) -> dict:
+    """Serve ``priority_workload`` traffic: submit the batch streams, then
+    each burst once the engine has run its decode steps (at once when the
+    engine idles first), stepping until idle. Per request (batch streams
+    first, then the bursts in order) its tokens, its time to first token
+    and its completion time on the host clock from its ``submit`` (the
+    end of the step that emitted the token; every emitted token is on
+    the host); the pass's seconds."""
+    prompts, params = work["batch"]
+    bursts = list(work["bursts"])
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d0 = engine.num_decode_steps
+    streams = [engine.submit(p, s) for p, s in zip(prompts, params)]
+    submitted = [t0] * len(streams)
+    first, finished = [], []
+    idle = False
+    while True:
+        while bursts and (idle or engine.num_decode_steps - d0 >= bursts[0][0]):
+            _, ps, ss = bursts.pop(0)
+            for p, s in zip(ps, ss):
+                submitted.append(time.perf_counter())
+                streams.append(engine.submit(p, s))
+        idle = not engine.step()
+        now = time.perf_counter()
+        first += [None] * (len(streams) - len(first))
+        finished += [None] * (len(streams) - len(finished))
+        for i, st in enumerate(streams):
+            if first[i] is None and st._request.generated:
+                first[i] = now - submitted[i]
+            if finished[i] is None and st.done:
+                finished[i] = now - submitted[i]
+        if idle and not bursts:
+            break
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"outs": [list(s) for s in streams], "ttft": first,
+            "done_s": finished, "seconds": time.perf_counter() - t0,
+            "batch": len(prompts), "ids": [s.request_id for s in streams]}
 
 
 def serve(torch, engine, prompts, params) -> dict:

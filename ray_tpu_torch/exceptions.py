@@ -15,3 +15,8 @@ class EngineDiedError(Exception):
 class DeadlineExceededError(TimeoutError):
     """The request's ``deadline_s`` expired before generation completed;
     the sequence was evicted and its KV blocks freed."""
+
+
+class EngineOverloadedError(Exception):
+    """Admission control refused the request: the engine's waiting queue
+    (or its worst-case KV-block budget) is full. Retryable."""

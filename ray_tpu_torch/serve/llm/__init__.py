@@ -8,6 +8,7 @@ from __future__ import annotations
 from ray_tpu_torch.exceptions import (
     DeadlineExceededError,
     EngineDiedError,
+    EngineOverloadedError,
     RequestCancelledError,
 )
 from ray_tpu_torch.serve.llm.engine import (
@@ -18,6 +19,7 @@ from ray_tpu_torch.serve.llm.engine import (
 )
 
 __all__ = [
-    "DeadlineExceededError", "EngineConfig", "EngineDiedError", "LLMEngine",
-    "RequestCancelledError", "SamplingParams", "TokenStream",
+    "DeadlineExceededError", "EngineConfig", "EngineDiedError",
+    "EngineOverloadedError", "LLMEngine", "RequestCancelledError",
+    "SamplingParams", "TokenStream",
 ]

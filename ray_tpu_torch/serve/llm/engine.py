@@ -78,16 +78,30 @@ evicted at the top of a step and fail with ``DeadlineExceededError``)
 and ``start_index`` (failover resume: the grammar replays the prompt's
 delivered tail).
 
-What the port's engine leaves out of the JAX engine so far: priority
-classes (``SamplingParams.priority`` is refused) with preemption (and
-its use of ``kv_cache.demote_chain``), admission skip-ahead
-(``admission_probe``, ``admission_max_skips``), admission-queue limits
-(``max_waiting``, ``max_waiting_blocks``, ``EngineOverloadedError``),
+Priority classes (``SamplingParams.priority``: "batch" < "default" <
+"interactive"), with ``EngineConfig.preemption`` set: under KV-pool
+pressure (or a higher class's queue wait) the lowest-ranked running
+stream is parked: the lag collapses, its chain is registered up to its
+last resident token and demoted to the host tier in one
+``executor.export_blocks`` (``kv_cache.demote_chain``), its blocks go
+back once, and it waits in ``preempted`` with its tokens, grammar cursor
+and sampling keys intact. When pressure clears, or its aging floor
+trips, it is re-admitted as prompt + generated tokens: the cached blocks
+come back from the device or the host tier, the tail is recomputed at
+true positions, and keyed sampling gives the tokens an unparked run
+would. Admission takes the rank order when preemption is on, probes
+``admission_probe`` requests past a head that does not fit (at most
+``admission_max_skips`` times for one head), and ``submit`` refuses with
+``EngineOverloadedError`` past ``max_waiting`` requests or
+``max_waiting_blocks`` worst-case blocks queued.
+
+What the port's engine leaves out of the JAX engine so far:
 observability beyond ``stats()`` and the sync records of
-``debug_dump()`` (``obs.py``, the flight recorder, the watchdog), the
-Serve deployment (``api.py``), the router's prefix digests, sharded
-executors, and graphs for prefill (it runs eagerly). The head of the
-admission queue blocks the requests behind it until it fits.
+``debug_dump()`` (``obs.py``, the flight recorder, the watchdog, the
+preemption metrics and timeline events, ``autoscaling_snapshot``), the
+chaos points, the Serve deployment (``api.py``: class-aware shedding,
+Retry-After), the router's prefix digests, sharded executors, and graphs
+for prefill (it runs eagerly).
 """
 from __future__ import annotations
 
@@ -107,6 +121,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.exceptions import (
     DeadlineExceededError,
     EngineDiedError,
+    EngineOverloadedError,
     RequestCancelledError,
 )
 from ray_tpu_torch.models.families import kv_heads
@@ -134,6 +149,11 @@ _FLIGHT_RECORDS = 256
 # sanity ceiling for max_new_tokens (submit() also checks max_seq_len)
 _MAX_NEW_TOKENS_CAP = 1 << 20
 
+# priority classes, lowest rank first: preemption parks the lower ranks
+# first, and admission (preemption on) takes the higher ranks first
+_PRIORITIES = ("batch", "default", "interactive")
+PRIORITY_RANK = {name: rank for rank, name in enumerate(_PRIORITIES)}
+
 
 @dataclass(frozen=True)
 class SamplingParams:
@@ -151,15 +171,15 @@ class SamplingParams:
     # they appear as a suffix of the generated tokens (the matched stop
     # tokens ARE emitted, like EOS). Normalized to a tuple of tuples.
     stop: Any = ()
-    # the reference's priority class: refused until preemption is ported
-    priority: Any = None
+    # priority class: "interactive" | "default" | "batch"; orders
+    # preemption and (preemption on) admission, never the tokens
+    priority: str = "default"
 
     def __post_init__(self):
-        if self.priority is not None:
-            raise TypeError(
-                "SamplingParams.priority is not ported yet: priority classes "
-                "come with preemption (PreemptionConfig), the next slice of "
-                "the port's engine"
+        if self.priority not in _PRIORITIES:
+            raise ValueError(
+                f"priority must be one of {_PRIORITIES}, "
+                f"got {self.priority!r}"
             )
         if not (1 <= self.max_new_tokens <= _MAX_NEW_TOKENS_CAP):
             raise ValueError(
@@ -201,10 +221,14 @@ class EngineConfig:
     length_buckets: tuple[int, ...] | None = None  # None -> pow2 ladder
     eos_id: int | None = None
     seed: int = 0                 # weight init seed (when params not given)
+    max_waiting: int = 128        # admission queue bound (overload beyond)
+    max_waiting_blocks: int | None = None  # worst-case block budget queued
     # prefill one prompt in slices of at most this many tokens, alternating
     # with decode steps; None -> the whole uncached rest in one call
     prefill_chunk_tokens: int | None = None
     prefix_caching: bool = True   # map prompts onto resident KV blocks
+    admission_probe: int = 4      # skip-ahead width when the head won't fit
+    admission_max_skips: int = 16  # aging cap: stop skipping a starved head
     # host KV tier capacity in bytes (RTKV records), 0 disables it: LRU
     # eviction demotes full prefix blocks into a host arena and prefix
     # hits promote them back (kv_cache.HostKVTier)
@@ -222,8 +246,26 @@ class EngineConfig:
     # Drafter | "ngram" | None (None drafts nothing); read only when
     # speculative_k > 0
     drafter: Any = "ngram"
+    # PreemptionConfig, or a dict of its fields; None disables priority
+    # preemption (low-rank running streams parked on the host tier under
+    # pressure, resumed when it clears)
+    preemption: Any = None
     # None -> cuda:0 (raises without a card); "cpu" only when asked
     device: Any = None
+
+
+@dataclass(frozen=True)
+class PreemptionConfig:
+    """Thresholds for priority preemption (``EngineConfig.preemption``).
+    Pressure is the fraction of usable KV blocks a new admission cannot
+    claim (reservations included); times are ``time.monotonic`` seconds."""
+
+    kv_pressure: float = 0.90   # park when pool pressure crosses this
+    queue_wait_s: float = 0.25  # ... or a higher-rank wait exceeds this
+    resume_pressure: float = 0.75  # resume parked streams below this
+    aging_s: float = 30.0       # starvation floor: waiting/parked this long
+    # ranks above interactive and is no longer preemptible
+    max_preempted: int = 64     # cap on concurrently parked streams
 
 
 class TokenStream:
@@ -263,6 +305,11 @@ class _Request:
         # grammar-constrained decoding: the request's structured.FSMCursor,
         # or None when unconstrained
         "fsm",
+        # admission and preemption: submit time, admissions that jumped
+        # past this head, the chain a parked stream re-prefills (prompt +
+        # generated; None otherwise), its last park time and park count
+        "submitted_clock", "skips", "pending_resume", "preempted_clock",
+        "preempt_count",
     )
 
     def __init__(self, req_id, prompt, sampling: SamplingParams):
@@ -281,12 +328,24 @@ class _Request:
         self.inflight = 0
         self.blocks_released = False
         self.fsm = None
-        self.deadline = (time.monotonic() + sampling.deadline_s
+        self.submitted_clock = time.monotonic()
+        self.skips = 0
+        self.pending_resume: list[int] | None = None
+        self.preempted_clock: float | None = None
+        self.preempt_count = 0
+        self.deadline = (self.submitted_clock + sampling.deadline_s
                          if sampling.deadline_s is not None else None)
 
     @property
     def total_len(self) -> int:
         return len(self.prompt) + len(self.generated)
+
+    @property
+    def prefill_tokens(self) -> list[int]:
+        """The chain prefill makes resident: the prompt, or prompt +
+        generated tokens when resuming from a park."""
+        return (self.pending_resume if self.pending_resume is not None
+                else self.prompt)
 
 
 @dataclass
@@ -391,8 +450,18 @@ class LLMEngine:
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
         self._waiting: deque[_Request] = deque()
+        self._waiting_blocks = 0  # worst-case blocks held by the queue
         self._prefilling: list[_Request] = []  # admitted, prefill incomplete
         self._running: list[_Request] = []
+        self._preemption: PreemptionConfig | None = (
+            PreemptionConfig(**cfg.preemption)
+            if isinstance(cfg.preemption, dict) else cfg.preemption)
+        # parked streams: no KV blocks held, tokens and FSM cursor intact
+        self._preempted: list[_Request] = []
+        self._preempted_total = 0
+        # pressure holds and no running stream is outranked by a waiter
+        self._preempt_exhausted = False
+        self._rejected_total = 0
         self._next_id = 0
         self._auto_step = auto_step
         self._thread: threading.Thread | None = None
@@ -470,10 +539,21 @@ class LLMEngine:
         with self._lock:
             if self._stopped:
                 raise RuntimeError("engine is shut down")
+            if len(self._waiting) >= self.cfg.max_waiting or (
+                self.cfg.max_waiting_blocks is not None
+                and self._waiting_blocks + need > self.cfg.max_waiting_blocks
+            ):
+                self._rejected_total += 1
+                raise EngineOverloadedError(
+                    f"admission queue full ({len(self._waiting)} waiting, "
+                    f"{self._waiting_blocks} worst-case blocks queued); "
+                    "retry later"
+                )
             req = _Request(self._next_id, prompt, sampling)
             req.fsm = fsm
             self._next_id += 1
             self._waiting.append(req)
+            self._waiting_blocks += need
             self._work.notify_all()
         if self._auto_step:
             self._ensure_thread()
@@ -494,12 +574,15 @@ class LLMEngine:
         return list(stream)
 
     def step(self) -> bool:
-        """One scheduler iteration: expire deadlines, admit what fits,
-        then EITHER one prefill call OR one batched decode (or verify)
-        step. Returns False when idle (nothing waiting, running or in
-        flight)."""
+        """One scheduler iteration: expire deadlines, resume and park
+        streams (preemption on), admit what fits, then EITHER one prefill
+        call OR one batched decode (or verify) step. Returns False when
+        there is nothing to prefill, decode or reconcile."""
         with self._lock:
             self._expire_deadlines_locked()
+            if self._preemption is not None:
+                self._maybe_resume_locked()
+                self._maybe_preempt_locked()
             self._admit_locked()
             if self._prefilling and (
                 self.last_step_kind != "prefill"
@@ -544,10 +627,14 @@ class LLMEngine:
                 "waiting": len(self._waiting),
                 "prefilling": len(self._prefilling),
                 "running": len(self._running),
+                "preempted": len(self._preempted),
+                "preemptions_total": self._preempted_total,
+                "preempt_exhausted": self._preempt_exhausted,
                 "kv_used_blocks": self.cache.used_blocks,
                 "kv_utilization": self.cache.utilization,
                 "kv_high_water_blocks": cs.high_water_blocks,
                 "num_compiled_shapes": self.num_compiled_shapes,
+                "rejected_total": self._rejected_total,
                 "prefix_hit_tokens": hit,
                 "prefix_hit_blocks": cs.prefix_hit_blocks,
                 "prefix_cached_blocks": self.cache.cached_blocks,
@@ -663,7 +750,8 @@ class LLMEngine:
     # ---------------- scheduler internals (lock held) ----------------
 
     def _find_locked(self, request_id) -> _Request | None:
-        for r in (*self._running, *self._prefilling, *self._waiting):
+        for r in (*self._running, *self._prefilling, *self._waiting,
+                  *self._preempted):
             if r.id == request_id:
                 return r
         return None
@@ -684,14 +772,27 @@ class LLMEngine:
         self._work.notify_all()  # freed blocks may unblock admissions
 
     def _evict_locked(self, r: _Request) -> None:
+        """Take a live request out of the scheduler and give back what it
+        holds: an admitted row's blocks (once), a waiting one's queued
+        budget; a parked row holds nothing. Leaves its stream alone."""
         if r in self._running:
             self._running.remove(r)
         elif r in self._prefilling:
             self._prefilling.remove(r)
+        elif r in self._preempted:
+            self._preempted.remove(r)
         else:
             self._waiting.remove(r)
+            self._waiting_blocks -= self._queued_blocks(r)
         r.done = True  # before release: an in-flight row defers it
         self._release_blocks_locked(r)
+        self._work.notify_all()
+
+    def _queued_blocks(self, r: _Request) -> int:
+        """The worst-case blocks a waiting request counts against
+        ``max_waiting_blocks``."""
+        return self.cache.cfg.blocks_for(
+            len(r.prompt) + r.sampling.max_new_tokens)
 
     def _expire_deadlines_locked(self) -> None:
         """Evict every request whose deadline passed (blocks back once,
@@ -699,7 +800,7 @@ class LLMEngine:
         with ``DeadlineExceededError`` and end it."""
         now = time.monotonic()
         expired = [r for r in (*self._waiting, *self._prefilling,
-                               *self._running)
+                               *self._running, *self._preempted)
                    if r.deadline is not None and now >= r.deadline]
         for r in expired:
             self._evict_locked(r)
@@ -709,17 +810,133 @@ class LLMEngine:
                 f"expired after {len(r.generated)} tokens"))
             r.out.put(_DONE)
 
+    # ---------------- priority preemption ----------------
+
+    def _kv_pressure_locked(self) -> float:
+        """The fraction of usable blocks a new admission cannot claim:
+        allocations, reservations and quarantined blocks count, cached
+        prefix blocks (evictable) do not."""
+        cache = self.cache
+        usable = max(1, cache.cfg.usable_blocks)
+        claimable = max(0, cache.available_blocks - cache.reserved_blocks)
+        return min(1.0, max(0.0, 1.0 - claimable / usable))
+
+    def _rank_locked(self, r: _Request, now: float) -> int:
+        """A request's effective rank at ``now``: its class rank, raised
+        above every class once it has waited or sat parked past the aging
+        floor. An aged waiter is admitted first; an aged running stream
+        (a parked one keeps aging from its park) is never a victim."""
+        pc = self._preemption
+        rank = PRIORITY_RANK[r.sampling.priority]
+        ref = (r.preempted_clock if r.preempted_clock is not None
+               else r.submitted_clock)
+        if pc is not None and now - ref >= pc.aging_s:
+            rank = len(_PRIORITIES)
+        return rank
+
+    def _maybe_preempt_locked(self) -> None:
+        """Park the lowest-ranked running stream when pool pressure, or
+        the wait of the highest-ranked waiter, crosses its threshold; ONE
+        victim a step (admission runs right after and sees the freed
+        blocks). While pressure holds and no running stream is outranked
+        by that waiter (or the parked set is full), ``preempt_exhausted``
+        latches True."""
+        pc = self._preemption
+        if not self._waiting:
+            self._preempt_exhausted = False
+            return
+        now = time.monotonic()
+        waiter = max(self._waiting, key=lambda rq: self._rank_locked(rq, now))
+        w_rank = self._rank_locked(waiter, now)
+        if not (self._kv_pressure_locked() >= pc.kv_pressure
+                or now - waiter.submitted_clock >= pc.queue_wait_s):
+            self._preempt_exhausted = False
+            return
+        victims = [r for r in self._running
+                   if self._rank_locked(r, now) < w_rank]
+        if not victims or len(self._preempted) >= pc.max_preempted:
+            self._preempt_exhausted = True
+            return
+        self._preempt_exhausted = False
+        # the lowest class first; within it the youngest stream (the
+        # oldest are nearest completion, which frees their blocks for good)
+        victim = min(victims, key=lambda r: (self._rank_locked(r, now),
+                                             -r.submitted_clock))
+        self._preempt_one_locked(victim, now)
+
+    def _preempt_one_locked(self, r: _Request, now: float) -> bool:
+        """Park one running stream: reconcile the step in flight (a decode
+        graph's ids hold only until its next replay, and the victim may
+        complete there: then False), register its chain up to its last
+        resident token and demote it to the host tier in one export,
+        give its blocks back once and reset the row to its pre-admission
+        shape. Its resume re-admits prompt + generated tokens."""
+        if self._pending is not None:
+            self._reconcile_locked(self._pending)
+        if r.done or r not in self._running:
+            return False
+        chain = r.prompt + r.generated
+        # the last emitted token's K/V lands only when it is fed back
+        resident = r.total_len - 1
+        if self.cfg.prefix_caching:
+            self.cache.register_prefix(r.id, chain, resident)
+        self.cache.demote_chain(chain, resident)
+        self._running.remove(r)
+        self._release_blocks_locked(r)
+        r.blocks_released = False
+        r.reserved_blocks = 0
+        r.drawn_blocks = 0
+        r.prefill_done = 0
+        r.started = False
+        r.skips = 0
+        r.table_np = None
+        r.table_key = None
+        r.pending_resume = chain
+        r.preempted_clock = now
+        r.preempt_count += 1
+        self._preempted.append(r)
+        self._preempted_total += 1
+        return True
+
+    def _maybe_resume_locked(self) -> None:
+        """Re-admit parked streams while pressure is at most
+        ``resume_pressure``, or unconditionally once a stream's aging
+        floor trips; the highest rank first, the oldest park first within
+        it, stopping at the first that does not fit. ``preempted_clock``
+        stays set: a resumed stream keeps aging from its park, so it is
+        soon no longer preemptible."""
+        pc = self._preemption
+        now = time.monotonic()
+        while self._preempted:
+            cand = max(self._preempted,
+                       key=lambda r: (self._rank_locked(r, now),
+                                      -r.preempted_clock))
+            aged = now - cand.preempted_clock >= pc.aging_s
+            if not aged and self._kv_pressure_locked() > pc.resume_pressure:
+                break
+            if (len(self._running) + len(self._prefilling)
+                    >= self.cfg.max_batch_size):
+                break
+            if not self._try_admit_one_locked(cand):
+                break
+            self._preempted.remove(cand)
+            self._prefilling.append(cand)
+
+    # ---------------- admission ----------------
+
     def _try_admit_one_locked(self, req: _Request) -> bool:
         """Reserve the request's worst-case blocks (prompt +
-        max_new_tokens), give it a table and map its resident prompt
-        prefix; False (no state change) when they do not fit right now.
-        A prompt resident whole reserves ONE extra block: its last token
-        is recomputed for the first token's logits, and that write lands
-        in a shared block, so it always makes one copy-on-write."""
+        max_new_tokens; for a resumed stream its chain plus the tokens
+        still to generate, the same count), give it a table and map its
+        resident prefix; False (no state change) when they do not fit
+        right now. A chain resident whole reserves ONE extra block: its
+        last token is recomputed for the next token's logits, and that
+        write lands in a shared block, so it always makes one
+        copy-on-write."""
         bs = self.cfg.block_size
-        toks = req.prompt
+        toks = req.prefill_tokens
         need = self.cache.cfg.blocks_for(
-            len(toks) + req.sampling.max_new_tokens
+            len(toks) + req.sampling.max_new_tokens - len(req.generated)
         )
         max_hit_blocks = None
         if self.cfg.prefix_caching:
@@ -744,19 +961,40 @@ class LLMEngine:
         return True
 
     def _admit_locked(self) -> int:
-        """Move waiting requests into the prefilling set in FIFO order,
-        up to the batch and prefill limits; stops at the first request
-        whose reservation does not fit. Returns the number admitted."""
-        admitted = 0
-        while (
-            self._waiting
-            and len(self._running) + len(self._prefilling)
-            < self.cfg.max_batch_size
-            and admitted < self.cfg.max_prefill_batch
-            and self._try_admit_one_locked(self._waiting[0])
-        ):
-            self._prefilling.append(self._waiting.popleft())
-            admitted += 1
+        """Move waiting requests into the prefilling set, up to the batch
+        and prefill limits: in FIFO order, or with preemption on by
+        effective rank (a stable sort: FIFO within a rank). When one does
+        not fit, probe up to ``admission_probe`` requests behind it,
+        unless the head has been skipped ``admission_max_skips`` times;
+        then admission waits for the head. Returns the number admitted."""
+        if not self._waiting:
+            return 0
+        if self._preemption is not None and len(self._waiting) > 1:
+            now = time.monotonic()
+            order = sorted(self._waiting,
+                           key=lambda rq: -self._rank_locked(rq, now))
+        else:
+            order = list(self._waiting)
+        head = order[0]
+        probe_budget = (self.cfg.admission_probe
+                        if head.skips < self.cfg.admission_max_skips else 0)
+        admitted = probed = 0
+        for req in order:
+            if (len(self._running) + len(self._prefilling)
+                    >= self.cfg.max_batch_size
+                    or admitted >= self.cfg.max_prefill_batch):
+                break
+            if self._try_admit_one_locked(req):
+                self._waiting.remove(req)
+                self._waiting_blocks -= self._queued_blocks(req)
+                self._prefilling.append(req)
+                admitted += 1
+            elif probed >= probe_budget:
+                break
+            else:
+                probed += 1
+        if admitted and head in self._waiting:
+            head.skips += 1  # an admission jumped past the head
         return admitted
 
     def _table_for(self, r: _Request, nb: int) -> np.ndarray:
@@ -809,7 +1047,7 @@ class LLMEngine:
         ns = []
         for r in batch:
             r.started = True
-            remaining = len(r.prompt) - r.prefill_done
+            remaining = len(r.prefill_tokens) - r.prefill_done
             ns.append(remaining if cap is None else min(remaining, cap))
         pairs = []
         for r, n in zip(batch, ns):
@@ -822,7 +1060,7 @@ class LLMEngine:
             pairs.extend(cow)
         self.executor.copy_blocks(pairs)
         fresh = all(
-            r.prefill_done == 0 and n == len(r.prompt)
+            r.prefill_done == 0 and n == len(r.prefill_tokens)
             for r, n in zip(batch, ns)
         )
         S = pad_to_bucket(max(ns), self._length_buckets)
@@ -845,7 +1083,8 @@ class LLMEngine:
         starts[:] = 0
         tables[:] = 0
         for i, (r, n) in enumerate(zip(batch, ns)):
-            tokens[i, :n] = r.prompt[r.prefill_done: r.prefill_done + n]
+            tokens[i, :n] = r.prefill_tokens[r.prefill_done:
+                                             r.prefill_done + n]
             lengths[i] = n
             starts[i] = r.prefill_done
             tables[i] = self._table_for(r, nb)
@@ -863,13 +1102,17 @@ class LLMEngine:
                                         lag=0)
         self.num_prefill_calls += 1
         for i, (r, n) in enumerate(zip(batch, ns)):
+            toks = r.prefill_tokens
             r.prefill_done += n
             self._prefill_tokens_total += n
             if self.cfg.prefix_caching:
-                self.cache.register_prefix(r.id, r.prompt, r.prefill_done)
-            if r.prefill_done >= len(r.prompt):
-                # the final chunk's last-token logits give the first token
+                self.cache.register_prefix(r.id, toks, r.prefill_done)
+            if r.prefill_done >= len(toks):
+                # the final chunk's last-token logits give the next token
+                # (a resumed chain's: the keyed sampler at its true
+                # position, as an unparked decode step would)
                 self._prefilling.remove(r)
+                r.pending_resume = None
                 self._emit_token_locked(r, int(host[i]))
                 if not r.done:
                     self._running.append(r)
@@ -1241,14 +1484,17 @@ class LLMEngine:
 
     def _fan_out_locked(self, err: BaseException) -> None:
         """Fail every live stream with ``err`` and return all blocks."""
-        for r in (*self._waiting, *self._prefilling, *self._running):
+        for r in (*self._waiting, *self._prefilling, *self._running,
+                  *self._preempted):
             if not r.done:
                 r.done = True
                 r.out.put(err)
                 r.out.put(_DONE)
         self._waiting.clear()
+        self._waiting_blocks = 0
         self._prefilling = []
         self._running = []
+        self._preempted = []
         self._pending = None  # the in-flight step dies with the engine
         self.cache.release_all()
 
@@ -1280,6 +1526,9 @@ class LLMEngine:
                 return
             if not progressed:
                 with self._work:
+                    # with parked streams only, keep stepping: their
+                    # resume waits on the pool or on the aging clock
                     if not (self._stopped or self._waiting
-                            or self._prefilling or self._running):
+                            or self._prefilling or self._running
+                            or self._preempted):
                         self._work.wait(timeout=0.05)

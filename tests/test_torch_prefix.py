@@ -69,10 +69,9 @@ def jax_engine(models, family, **kw):
 
     jcfg, jtree, _, _ = models[family]
     kw = {"num_blocks": 64, **BUCKETS, **kw}
-    # FIFO admission, as the port's (no skip-ahead past the head)
     return LLMEngine(EngineConfig(model=family, model_config=jcfg,
-                                  attention_backend="xla", admission_probe=0,
-                                  **kw), params=jtree, auto_step=False)
+                                  attention_backend="xla", **kw),
+                     params=jtree, auto_step=False)
 
 
 def port_engine(models, family, **kw):

@@ -10,8 +10,8 @@ window ends the stream there with every block back once, and the
 
 Tiny f32 configs whose weights are the JAX init at ``PRNGKey(0)`` (the
 JAX engine's own default weights) carried across by ``convert.py``; one
-batch and one length bucket keep the JAX side to few programs. The JAX
-engine runs with ``admission_probe=0`` (the port's FIFO admission)."""
+batch and one length bucket keep the JAX side to few programs. Both
+engines admit with their default skip-ahead (``admission_probe=4``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -84,7 +84,7 @@ def _jax_engine(fam, **kw):
     jcfg, _, tree, _ = _weights(fam)
     kw = {**BUCKETS, **kw}
     return LLMEngine(EngineConfig(model=fam, model_config=jcfg,
-                                  prefix_caching=False, admission_probe=0,
+                                  prefix_caching=False,
                                   attention_backend="xla", **kw),
                      params=jax.tree.map(jnp.asarray, tree), auto_step=False)
 

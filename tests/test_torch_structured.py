@@ -94,7 +94,7 @@ def _jax_engine(fam="llama", **kw):
 
     jcfg, _, tree, _ = _weights(fam)
     return LLMEngine(EngineConfig(model=fam, model_config=jcfg,
-                                  prefix_caching=False, admission_probe=0,
+                                  prefix_caching=False,
                                   attention_backend="xla",
                                   **{**BUCKETS, **kw}),
                      params=jax.tree.map(jnp.asarray, tree), auto_step=False)
@@ -264,8 +264,13 @@ def test_sampling_params_fields():
     for name in ("deadline_s", "start_index", "structured"):
         assert getattr(mine, name) == getattr(ref, name)
     assert dataclasses.replace(mine, seed=4).stop == ((5,), (6, 7))
-    with pytest.raises(TypeError, match="preemption"):
-        T(priority="interactive")
+    for p in ("batch", "default", "interactive"):
+        assert T(priority=p).priority == J(priority=p).priority == p
+    with pytest.raises(ValueError) as mine_err:
+        T(priority="bulk")
+    with pytest.raises(ValueError) as ref_err:
+        J(priority="bulk")
+    assert str(mine_err.value) == str(ref_err.value)
 
 
 # ------------------------------------------------------------------ engine
