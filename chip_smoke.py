@@ -24,7 +24,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    288 and 512 (the column-chunked walk), B1-B3 at head dims 160
    (padded to 256), 256, 264 and 512 (column chunks of 256), and B4/B5
    and their quantized variants at the prefix path's shapes (a one-token
-   chunk at 575, a suffix chunk at 512, decode over shared blocks);
+   chunk at 575, a suffix chunk at 512, decode over shared blocks), and
+   B5 at a 2048-token context, where the plain version streams;
 4. trains GPT-2 125M at full width and depth (bf16 activations, f32
    masters, seeded random weights, one fixed [16, 1025] batch) through the
    port's ``run_gpt_bench``: the loss must stay finite and fall, and each
@@ -109,15 +110,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    token of the sampled stream (parked and resumed) of either engine
    must be its keyed draw's on logits recomputed alone, to 1e-4 of
    probability mass at f32 and 0.05 in bf16;
-12. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+12. checks the observability surface on Llama-125M bf16 (``obs_phase``,
+   the engine phases' geometry and workload): the metric families'
+   counters against ``stats()`` and the streams, the TTFT and TPOT
+   sample counts, the host-sync count against the flight ring, the
+   paged launches of the trace against 12 x the ring's steps (every
+   counted pass above prints the two side by side), 4 host launch API
+   calls a decode step, goodput and serving MFU, the instrumentation's
+   host ms a step; then a chaos raise and a wedge (a 2 s delay, watchdog
+   0.5 s) at the 10th decode step: every stream fails (the wedge within
+   0.75 s), one dump each, the pool whole; then a fresh engine repeats
+   the streams;
+13. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
    families' engine and training paths, the prefix path, the
-   speculative path ``llama_spec`` and the preemption path
-   ``llama_preempt``; a paged
+   speculative path ``llama_spec``, the preemption path
+   ``llama_preempt`` and the observability path ``llama_obs``; a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-13. for each family, on its training phase's first weights and batch
+14. for each family, on its training phase's first weights and batch
    ([16, 1025]), holds the loss and every gradient through the CUDA
    kernels against the plain backend's (LOSS_TOL, GRAD_REL_TOL); then
    ``{"ok": true, "device": ...}`` last.
@@ -970,7 +982,7 @@ def engine_phase(torch, quant=None, model="gpt") -> dict:
     if eager != want_eager or min(prefill_calls, decode_steps) == 0:
         raise AssertionError(f"eager launches {eager} != {want_eager}")
     lags = [r["sync_lag"] for r in engine.debug_dump()["steps"]
-            if r["kind"] == "decode"]
+            if r["kind"] == "decode" and "sync_lag" in r]
     if 1 not in lags or engine.stats()["decode_inflight"] != 0:
         raise AssertionError(f"the decode loop never ran at lag 1: {lags}")
     c = engine.cache
@@ -993,11 +1005,13 @@ def engine_phase(torch, quant=None, model="gpt") -> dict:
 
     # the counted pass: the launches on the device, from its trace
     pa.reset_launches()
+    mark = ring_mark(engine)
     prof, (prefill_calls, decode_steps, replays) = calls(
         lambda: ep.profiled_pass(torch, engine, prompts, params))
     eager = dict(pa.LAUNCHES)
     launches = dict.fromkeys(pa.LAUNCHES, 0)
     launches.update(prof["paged_launches"])
+    log_launch_counts(tag, launches, ring_launches(engine, mark, suffix))
     want = dict.fromkeys(launches, 0)
     want[decode] = cfg.n_layer * decode_steps
     want[prefill] = cfg.n_layer * prefill_calls
@@ -1425,6 +1439,69 @@ def prefix_kernels_phase(torch) -> None:
         compare(f"{tag} B4: 8 rows sharing 32 blocks", got, want, "bfloat16")
 
 
+def long_prefill_phase(torch) -> None:
+    """B5 against its plain version at a 2048-token context (bf16 q and
+    pool, Llama-125M's heads): there the plain version takes its
+    streaming branch (``ops/kv_cache.PREFILL_STREAM_MIN_T``, the JAX
+    package's online softmax over one block slab at a time)."""
+    from ray_tpu_torch.ops import kv_cache as kv_ops
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, S, Hkv, G, hd, bs, NB = 2, 64, 4, 3, 64, 16, 128
+    if NB * bs < kv_ops.PREFILL_STREAM_MIN_T:
+        raise AssertionError("the case must reach the streaming branch")
+    k, v = make_pool(torch, gen, torch.bfloat16, 1 + B * NB, bs, Hkv, hd)
+    tables = (torch.randperm(B * NB, generator=gen, device="cuda") + 1).to(
+        torch.int32).view(B, NB)
+    pos = (NB * bs - S + torch.arange(S, device="cuda", dtype=torch.int32))[
+        None].repeat(B, 1).contiguous()
+    q = torch.randn(B, S, Hkv * G, hd, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = pa.paged_prefill_attention_cuda(q, k, v, tables, pos)
+    want = kv_ops.paged_prefill_attention(q, k, v, tables, pos)
+    torch.cuda.synchronize()
+    compare(f"B5 at T {NB * bs} vs the streaming plain version", got, want,
+            "bfloat16")
+
+
+def ring_mark(engine) -> int:
+    """The engine's flight-ring step count now (``ring_launches`` counts
+    the records after it)."""
+    return engine.debug_dump()["steps_total"]
+
+
+def ring_launches(engine, since: int, suffix: str = "") -> dict:
+    """A second count of a pass's paged launches, not from the profiler:
+    the engine's own flight ring after step ``since`` gives its decode
+    steps that dispatched (B4: n_layer each) and its prefill calls and
+    verify steps (B5: n_layer each)."""
+    dump = engine.debug_dump()
+    recs = [r for r in dump["steps"] if r["step"] > since]
+    if dump["steps_total"] - since != len(recs):
+        raise AssertionError(
+            f"the flight ring ({dump['capacity']}) lost records of the pass")
+    n_layer = engine.model_cfg.n_layer
+    decode = sum(r["kind"] == "decode" and r["batch"] > 0 for r in recs)
+    prefill = sum(r["kind"] in ("prefill", "prefill_chunk", "verify")
+                  for r in recs)
+    return {"paged_decode" + suffix: n_layer * decode,
+            "paged_prefill" + suffix: n_layer * prefill}
+
+
+def log_launch_counts(tag, traced: dict, ring: dict) -> None:
+    """The trace's paged launches beside the ring's, and where they
+    differ, which of the two is short."""
+    parts = []
+    for name, n in ring.items():
+        t = traced.get(name, 0)
+        verdict = ("equal" if t == n else f"the trace is short by {n - t}"
+                   if t < n else f"the ring is short by {t - n}")
+        parts.append(f"{name} trace {t} / ring {n} ({verdict})")
+    log(f"{tag}: paged launches, the trace beside the engine's flight ring "
+        f"x n_layer: " + "; ".join(parts))
+
+
 def prefix_breakdown(torch, engine, work, tag) -> None:
     """One more run of the waves with the host time of each step kind and
     of each block move measured around its call (host clock; a demote's
@@ -1583,6 +1660,7 @@ def prefix_phase(torch, kind, card, profile_host=False) -> dict:
         profs.append(prof)
 
     pa.reset_launches()
+    mark = ring_mark(engine)
     counted = prefix_waves(torch, engine, work, sources_unchanged,
                            wave_context, timed_moves=False)
     eager = dict(pa.LAUNCHES)
@@ -1590,6 +1668,8 @@ def prefix_phase(torch, kind, card, profile_host=False) -> dict:
     for prof in profs:
         for name, n in ep.paged_launches(prof).items():
             launches[name] += n
+    log_launch_counts(tag, launches, ring_launches(
+        engine, mark, f"_{kind}" if kind else ""))
     calls = [sum(w[k] for w in counted.values())
              for k in ("prefill_calls", "decode_steps")]
     want = dict.fromkeys(launches, 0)
@@ -1847,6 +1927,7 @@ def spec_counted_pass(torch, engine, prompts, params, kind, tag) -> dict:
     pa.reset_launches()
     was = (engine.num_prefill_calls, engine.num_decode_steps,
            engine.num_verify_steps)
+    mark = ring_mark(engine)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run = ep.spec_serve(torch, engine, prompts, params)
@@ -1856,6 +1937,7 @@ def spec_counted_pass(torch, engine, prompts, params, kind, tag) -> dict:
              engine.num_verify_steps - was[2])
     launches = dict.fromkeys(pa.LAUNCHES, 0)
     launches.update(ep.paged_launches(prof))
+    log_launch_counts(tag, launches, ring_launches(engine, mark, suffix))
     want = dict.fromkeys(launches, 0)
     want["paged_decode" + suffix] = n_layer * calls[1]
     want["paged_prefill" + suffix] = n_layer * (calls[0] + calls[2])
@@ -2449,6 +2531,7 @@ def priority_phase(torch, card) -> dict:
     eng = engines[True]
     tag = "priority[llama bf16 preemption on]"
     pa.reset_launches()
+    mark = ring_mark(eng)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         counted = priority_pass(torch, eng, work)
@@ -2456,6 +2539,7 @@ def priority_phase(torch, card) -> dict:
     priority_checks(eng, counted, work, tag)
     launches = dict.fromkeys(pa.LAUNCHES, 0)
     launches.update(ep.paged_launches(prof))
+    log_launch_counts(tag, launches, ring_launches(eng, mark))
     n_layer = eng.model_cfg.n_layer
     want = dict.fromkeys(launches, 0)
     want["paged_decode"] = n_layer * counted["counts"]["decode_steps"]
@@ -2516,6 +2600,311 @@ def priority_phase(torch, card) -> dict:
     del engines, eng
     torch.cuda.empty_cache()
     return {"launches": launches, "eager": eager}
+
+
+OBS_STEP_TIMEOUT_S = 0.5  # the watchdog's ceiling in the obs phase
+OBS_WEDGE_S = 2.0         # the chaos delay that wedges a decode step
+OBS_FANOUT_SLACK_S = 0.25  # every stream fails within the ceiling + this
+OBS_FAULT_AFTER = 10      # both faults fire at this decode step
+# a Llama-125M bf16 decode step before the instrumentation (PERF.md §5):
+# 4 host launch API calls (one graph replay; checked) and 683 device
+# kernels and copies (printed beside: a trace may lose a record, ROADMAP
+# Queue C 4); the instrumentation adds no device work
+DECODE_LAUNCH_API_CALLS = 4
+LLAMA_BF16_DEVICE_OPS = 683
+
+
+def obs_samples() -> dict:
+    """The port's ``llm_*`` metric samples now, by (sample name, labels)."""
+    from ray_tpu_torch.util import metrics
+
+    return {(smp["name"], tuple(sorted(smp["labels"].items()))): smp["value"]
+            for fam in metrics.collect_families("llm_").values()
+            for smp in fam["samples"]}
+
+
+def obs_moved(before: dict, after: dict, name: str, **labels) -> float:
+    key = (name, tuple(sorted(labels.items())))
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+def pool_is_whole(engine) -> bool:
+    c = engine.cache
+    return (c.available_blocks == c.cfg.usable_blocks
+            and c.reserved_blocks == 0)
+
+
+def obs_counted(torch, engine, prompts, params, card) -> dict:
+    """The obs phase's counted pass, traced: the metric families' counters
+    against ``stats()`` and the streams, the histograms' sample counts,
+    the host syncs against the flight ring, the trace's paged launches
+    against the ring's (the second count), goodput and serving MFU by
+    kind; then the instrumentation's host time a step, and a window of
+    decode steps with the launch and kernel counts of the engine before
+    the instrumentation."""
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve.llm import obs
+
+    tag = "obs[llama bf16]"
+    st0, m0, mark = engine.stats(), obs_samples(), ring_mark(engine)
+    was = (engine.num_prefill_calls, engine.num_decode_steps)
+    pa.reset_launches()
+    prof = ep.profiled_pass(torch, engine, prompts, params)
+    eager = dict(pa.LAUNCHES)
+    st, m1 = engine.stats(), obs_samples()
+    outs, n = prof["outs"], len(prompts)
+    ntok = sum(map(len, outs))
+    recs = [r for r in engine.debug_dump()["steps"] if r["step"] > mark]
+    reasons = [engine.request_timeline(i)["finish_reason"]
+               for i in prof["ids"]]
+    checks = {  # (metric, the count it must equal)
+        "tokens": (obs_moved(m0, m1, "llm_engine_tokens_generated_total"),
+                   ntok),
+        "prefill tokens": (
+            obs_moved(m0, m1, "llm_prefill_tokens_total"),
+            st["prefill_tokens_total"] - st0["prefill_tokens_total"]),
+        "finished": (obs_moved(m0, m1, "llm_requests_finished_total"),
+                     reasons.count("finished")),
+        "sync bytes": (
+            obs_moved(m0, m1, "llm_sync_bytes_total"),
+            st["host_sync_bytes_total"] - st0["host_sync_bytes_total"]),
+        "host syncs": (obs_moved(m0, m1, "llm_host_sync_seconds_count"),
+                       sum("sync_ms" in r for r in recs)),
+        "ttft samples": (obs_moved(m0, m1, "llm_ttft_seconds_count"), n),
+        "tpot samples": (
+            obs_moved(m0, m1, "llm_time_per_output_token_seconds_count"),
+            ntok - n),
+    }
+    log(f"{tag}: counted pass, {n} requests, {ntok} tokens: metric against "
+        f"its count " + ", ".join(f"{k} {int(a)} / {b}"
+                                 for k, (a, b) in checks.items()))
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad or reasons != ["finished"] * n:
+        raise AssertionError(f"{tag}: metrics disagree with their counts "
+                             f"{bad}, finish reasons {reasons}")
+    traced = dict.fromkeys(pa.LAUNCHES, 0)
+    traced.update(prof["paged_launches"])
+    ring = ring_launches(engine, mark)
+    log_launch_counts(tag, traced, ring)
+    want = dict.fromkeys(traced, 0)
+    want.update(ring)
+    n_layer = engine.model_cfg.n_layer
+    host = {"paged_decode": n_layer * (engine.num_decode_steps - was[1]),
+            "paged_prefill": n_layer * (engine.num_prefill_calls - was[0])}
+    if traced != want or ring != host:
+        raise AssertionError(f"{tag}: launches: trace {traced}, ring {ring}, "
+                             f"engine counters {host}")
+
+    # a timed pass: goodput over it alone (the windows hold the warm-up's
+    # graph captures and the traced pass before it), and the
+    # instrumentation's host time: the per-step bookkeeping (gauges,
+    # counters, the latency histogram, goodput, event stats, the flight
+    # record), the sync metering and the timeline appends, on obs.clock
+    spent = {}
+    parts = ("_step_done_locked", "_metered_sync", "_tl")
+
+    def timed(name):
+        fn = getattr(engine, name)
+
+        def wrapper(*args, **kw):
+            t0 = obs.clock()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + obs.clock() - t0
+        setattr(engine, name, wrapper)
+
+    for name in parts:
+        timed(name)
+    by_kind = {}  # step kind -> [steps, instrumentation seconds]
+    step = engine.step
+
+    def counted_step():
+        before = sum(spent.values())
+        ran = step()
+        if ran:
+            k = by_kind.setdefault(engine.last_step_kind, [0, 0.0])
+            k[0] += 1
+            k[1] += sum(spent.values()) - before
+        return ran
+
+    engine.step = counted_step
+    was = (engine.num_prefill_calls, engine.num_decode_steps)
+    engine._goodput_windows.clear()
+    run = ep.serve(torch, engine, prompts, params)
+    for name in (*parts, "step"):
+        delattr(engine, name)
+    goodput = engine.stats()["goodput"]
+    log(f"{tag}: goodput and serving MFU by step kind over a timed pass "
+        f"(the step's host clock, lag-1 caveat; peak "
+        f"{engine.executor.peak_tflops} TFLOP/s): "
+        + ", ".join(f"{k} {g['tokens_per_sec']:.1f} tokens/s MFU "
+                    f"{g['mfu']:.6f}" for k, g in goodput.items())
+        + f"; pass {ntok / run['seconds']:.1f} tokens/s; {card}")
+    steps = (engine.num_prefill_calls - was[0]) + (engine.num_decode_steps
+                                                   - was[1])
+    decode_ms = 1e3 * statistics.mean(run["steps"]["decode"])
+    obs_ms = 1e3 * sum(spent.values()) / steps
+    n_dec, s_dec = by_kind.get("decode", [0, 0.0])
+    obs_decode_ms = 1e3 * s_dec / max(1, n_dec)
+    log(f"{tag}: instrumentation host ms a decode step {obs_decode_ms:.4f} "
+        f"({n_dec} decode steps) beside the decode step's {decode_ms:.3f} "
+        f"ms on the host clock; a work step {obs_ms:.4f} ("
+        + ", ".join(f"{k} {1e3 * v / steps:.4f}" for k, v in spent.items())
+        + f"; {steps} steps); {card}")
+    if run["outs"] != outs:
+        raise AssertionError(f"{tag}: a timed pass differs from the first")
+
+    window = ep.decode_window(torch, engine, prompts)
+    log(f"{tag}: decode window of {window['steps']} steps: "
+        f"{window['launch_api_calls_per_step']:g} host launch API calls and "
+        f"{window['device_ops_per_step']:g} device kernels and copies a step "
+        f"(before the instrumentation {DECODE_LAUNCH_API_CALLS} and "
+        f"{LLAMA_BF16_DEVICE_OPS}); {window['step_ms']:.3f} ms a step")
+    if window["launch_api_calls_per_step"] != DECODE_LAUNCH_API_CALLS:
+        raise AssertionError(f"{tag}: the instrumentation changed a decode "
+                             f"step's launches: {window}")
+    return {"launches": traced, "eager": eager, "outs": outs,
+            "obs_ms_per_step": obs_ms, "obs_ms_per_decode_step": obs_decode_ms,
+            "goodput": goodput}
+
+
+def obs_faults(torch, make_engine, prompts, params, first_outs, root,
+               card) -> dict:
+    """The fail-closed paths on engines of ``make_engine(**overrides)``:
+    each warmed by a pass the caller steps (its graphs captured), then
+    stepping on its own thread with the workload queued under its lock
+    and a chaos fault at its OBS_FAULT_AFTER-th decode step. A ``raise``:
+    every stream fails with ``EngineDiedError``, one ``engine_died`` dump
+    (with ``stats``) lands in its dir, the pool is whole. A ``delay`` of
+    OBS_WEDGE_S with ``step_timeout_s`` OBS_STEP_TIMEOUT_S: every stream
+    fails within the ceiling + OBS_FANOUT_SLACK_S of the wedged step's
+    start, while the stepper still holds the lock, with one
+    ``watchdog_timeout`` dump of the ring and no ``stats``; woken, the
+    stepper dispatches nothing more and the pool is whole. Then a fresh
+    engine serves the first pass's streams. -> fan-out seconds and dump
+    bytes by fault."""
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch._private.chaos import Fault, FaultPlan
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.serve.llm import EngineDiedError, obs
+
+    out = {}
+    for name, action, arg, overrides in (
+            ("engine_died", "raise", None, {}),
+            ("watchdog_timeout", "delay", OBS_WEDGE_S,
+             {"step_timeout_s": OBS_STEP_TIMEOUT_S})):
+        tag = f"obs[{name}]"
+        d = os.path.join(root, name)
+        engine = make_engine(flight_recorder_dir=d, **overrides)
+        ep.serve(torch, engine, prompts, params)  # captures the graphs
+        died = []
+        fail = engine._fail_engine
+
+        def fail_engine(e, fail=fail, died=died):
+            died.append(obs.clock())
+            fail(e)
+
+        engine._fail_engine = fail_engine
+        engine._auto_step = True  # from here its own thread steps it
+        chaos.install(FaultPlan(faults=(Fault(
+            point="engine.decode", action=action, arg=arg,
+            after=OBS_FAULT_AFTER, times=1),)))
+        steps0 = engine.num_decode_steps
+        try:
+            with engine._lock:  # every stream queued before the first step
+                streams = [engine.submit(p, sp)
+                           for p, sp in zip(prompts, params)]
+            failed_at = []
+            for st in streams:
+                try:
+                    list(st)
+                except EngineDiedError:
+                    failed_at.append(obs.clock())
+            if name == "watchdog_timeout":
+                begin = engine._step_begin  # the wedged step's start
+                held = not engine._lock.acquire(blocking=False)
+                if not held:
+                    engine._lock.release()
+                start = begin
+            else:
+                held, start = None, (died or [None])[0]
+            engine._thread.join(timeout=OBS_WEDGE_S + 30)
+        finally:
+            chaos.clear()
+        files = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        dump = (json.load(open(os.path.join(d, files[0])))
+                if len(files) == 1 else {})
+        fanout = (max(failed_at) - start if failed_at and start is not None
+                  else None)
+        dispatched = engine.num_decode_steps - steps0
+        nbytes = os.path.getsize(os.path.join(d, files[0])) if files else 0
+        log(f"{tag}: {len(failed_at)} of {len(streams)} streams failed, the "
+            f"last {fanout if fanout is None else round(fanout, 4)} s after "
+            f"the {'raise' if action == 'raise' else 'wedged step began'}; "
+            f"{dispatched} decode steps dispatched; dump files {files} "
+            f"({nbytes} bytes, reason {dump.get('reason')}, "
+            f"{len(dump.get('steps', []))} ring records, stats "
+            f"{'in' if 'stats' in dump else 'not in'} it); lock held by "
+            f"the wedged stepper at the fan-out: {held}; pool whole "
+            f"{pool_is_whole(engine)}; {card}")
+        ok = (len(failed_at) == len(streams) and fanout is not None
+              and len(files) == 1 and dump.get("reason") == name
+              and dump.get("steps") and dispatched == OBS_FAULT_AFTER - 1
+              and pool_is_whole(engine) and not engine._thread.is_alive())
+        if name == "engine_died":
+            ok = ok and dump.get("stats", {}).get("failed") is True
+        else:
+            ok = (ok and held and "stats" not in dump
+                  and fanout <= OBS_STEP_TIMEOUT_S + OBS_FANOUT_SLACK_S)
+        if not ok:
+            raise AssertionError(f"{tag}: the fail-closed path did not hold")
+        out[name] = {"fanout_s": fanout, "dump_bytes": nbytes}
+        engine.shutdown()
+        del engine
+    fresh = make_engine()
+    again = ep.serve(torch, fresh, prompts, params)["outs"]
+    fresh.shutdown()
+    log(f"obs[fresh]: a fresh engine after both faults gives the first "
+        f"pass's streams: {again == first_outs}")
+    if again != first_outs:
+        raise AssertionError("a fresh engine after the faults differs")
+    return out
+
+
+def obs_phase(torch, card) -> dict:
+    """Llama-125M bf16 on the engine phase's geometry and workload
+    (``engine_profile.workload``), with a temporary flight-recorder dir: a
+    warm-up pass captures the graphs, then ``obs_counted`` (the counted,
+    traced pass and its checks) and ``obs_faults`` (a raise and a wedge at
+    a decode step, and a fresh engine after them)."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+
+    def make(**overrides):
+        return ep.make_engine(None, "llama", **overrides)
+
+    root = tempfile.mkdtemp(prefix="obs_phase_")
+    try:
+        engine = make(flight_recorder_dir=root)
+        prompts, params = ep.workload(engine.model_cfg.vocab_size)
+        first = ep.serve(torch, engine, prompts, params)
+        counted = obs_counted(torch, engine, prompts, params, card)
+        if counted["outs"] != first["outs"]:
+            raise AssertionError("obs: the counted pass differs from the "
+                                 "first")
+        engine.shutdown()
+        del engine
+        torch.cuda.empty_cache()
+        counted["faults"] = obs_faults(torch, make, prompts, params,
+                                       first["outs"], root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counted
 
 
 def profile_phase(torch, eng) -> None:
@@ -2665,6 +3054,7 @@ def main() -> int:
     for kind in QUANT_KINDS:
         rows.update(kernels_phase(torch, args.quick, kind))
     prefix_kernels_phase(torch)
+    long_prefill_phase(torch)
     frows = flash_phase(torch, args.quick)
     if args.quick:
         log(card)
@@ -2741,6 +3131,14 @@ def main() -> int:
     pre = priority_phase(torch, card)
     launches["llama_preempt"], eager["llama_preempt"] = (pre["launches"],
                                                         pre["eager"])
+
+    # the observability path: Llama-125M bf16 with its metrics, ring and
+    # fail-closed paths checked, the counts reset just before its counted
+    # pass and read just after
+    paths = (*paths, "llama_obs")
+    torch.cuda.empty_cache()
+    ob = obs_phase(torch, card)
+    launches["llama_obs"], eager["llama_obs"] = ob["launches"], ob["eager"]
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")

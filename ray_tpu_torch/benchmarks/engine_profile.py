@@ -49,14 +49,17 @@ import statistics
 import sys
 import time
 
+# a flight ring of 4096 records holds a whole counted pass (the second,
+# profiler-free launch count of chip_smoke.py reads it)
+RING = dict(flight_recorder_steps=4096)
 ENGINE = dict(block_size=16, num_blocks=1024, max_batch_size=8,
-              prefill_chunk_tokens=256, seed=0, prefix_caching=False)
+              prefill_chunk_tokens=256, seed=0, prefix_caching=False, **RING)
 PROMPT_LENGTHS = (30, 64, 120, 200, 333, 512, 700, 900)
 NEW_TOKENS = 32
 # shared-prefix traffic (prefix_workload): one 512-token prefix and a
 # suffix of each request's own; 512 + 64 = 576 is 36 whole blocks
 PREFIX_ENGINE = dict(block_size=16, num_blocks=256, max_batch_size=8,
-                     prefill_chunk_tokens=256, seed=0)
+                     prefill_chunk_tokens=256, seed=0, **RING)
 SHARED_PREFIX = 512
 SUFFIX_LENGTHS = (30, 64, 120, 200, 30, 64, 120, 200)
 FLOOD_PROMPTS, FLOOD_LENGTH = 12, 700
@@ -68,7 +71,7 @@ SPEC_MOTIF, SPEC_LENGTH, SPEC_NEW_TOKENS = (16, 48), (200, 800), 64
 # bursts of interactive chat turns (32 new tokens each), each submitted
 # once the engine has run PRIORITY_BURSTS[i][0] decode steps
 PRIORITY_ENGINE = dict(block_size=16, num_blocks=256, max_batch_size=8,
-                       prefill_chunk_tokens=256, seed=0)
+                       prefill_chunk_tokens=256, seed=0, **RING)
 PRIORITY_BATCH = (4, 700, 160)   # streams, prompt tokens, new tokens
 PRIORITY_SEED = 2
 PRIORITY_BURSTS = ((8, 4, 300), (40, 4, 300))  # decode steps, requests, tokens
@@ -307,8 +310,9 @@ def priority_serve(torch, engine, work) -> dict:
 
 
 def serve(torch, engine, prompts, params) -> dict:
-    """Submit every request and step the engine until idle; per-step host
-    times by kind."""
+    """Submit every request and step the engine until idle; the streams,
+    their request ids, the pass's seconds and per-step host times by
+    kind."""
     steps = {"prefill": [], "decode": []}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -320,6 +324,7 @@ def serve(torch, engine, prompts, params) -> dict:
         steps[engine.last_step_kind].append(time.perf_counter() - ts)
     torch.cuda.synchronize()
     return {"outs": [list(s) for s in streams],
+            "ids": [s.request_id for s in streams],
             "seconds": time.perf_counter() - t0, "steps": steps}
 
 
@@ -403,7 +408,8 @@ def profiled_pass(torch, engine, prompts, params) -> dict:
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = run["seconds"] * 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"outs": run["outs"], "ids": run["ids"],
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
             "decode_steps": len(run["steps"]["decode"]),
             "prefill_calls": len(run["steps"]["prefill"]),

@@ -32,9 +32,10 @@ rebound pool would leave every later replay reading a stale one.
 The attention functions here are the PLAIN versions of the two CUDA
 kernels (``csrc/paged_decode.cu``, ``csrc/paged_prefill.cu``): the CPU path
 of the dispatchers in ``ops/paged_attention.py``, and the yardstick the
-kernels are held against on the card. Contexts of 2048 tokens and more
-take a streaming path in the JAX package; ``max_seq_len`` 1024 never
-reaches it, so only the dense path is ported here.
+kernels are held against on the card. Contexts of
+``PREFILL_STREAM_MIN_T`` (2048) tokens and more take the streaming path
+of the JAX package (``_paged_prefill_streaming``): an online softmax over
+one block slab at a time, never the whole score tensor.
 """
 from __future__ import annotations
 
@@ -201,6 +202,57 @@ def gather_kv(
     return keys, values
 
 
+# Context length (NB * block_size) at and above which
+# ``paged_prefill_attention`` scans block slabs with an online softmax
+# instead of the dense one-shot formulation, as the JAX package's: the
+# dense path holds the whole [B, S, Hkv, G, T] f32 score tensor, the
+# streaming one a [B, S, Hkv, G, block_size] slab. The two differ in the
+# last ulp, so shorter contexts keep the dense path; tests set it lower.
+PREFILL_STREAM_MIN_T = 2048
+
+
+def _paged_prefill_streaming(qg, k_layer, v_layer, block_tables, positions,
+                             *, scale: float, window: int | None,
+                             hd: int) -> torch.Tensor:
+    """Online-softmax scan over the tables' block slabs: one [B, bs, Hkv,
+    hd] slab of keys and values at a time (a quantized slab dequantized
+    alone), carrying the running (max, sum, accumulator) in f32.
+    qg: [B, S, Hkv, G, hd] -> [B, S, Hkv, G, hd] f32."""
+    B, S, Hkv, G, _ = qg.shape
+    bs = k_layer.shape[1]
+    idx = block_tables.long()
+    pos = positions.long()
+    q32 = qg.float()
+    m = torch.full((B, S, Hkv, G), NEG_INF, device=qg.device)
+    l = torch.zeros((B, S, Hkv, G), device=qg.device)
+    acc = torch.zeros((B, S, Hkv, G, hd), device=qg.device)
+    for i in range(idx.shape[1]):
+        blk = idx[:, i]
+        if isinstance(k_layer, QuantizedKV):
+            keys, values = _dequant_rows(k_layer, blk), _dequant_rows(v_layer,
+                                                                      blk)
+        else:
+            keys, values = k_layer[blk], v_layer[blk]  # [B, bs, Hkv, *]
+        keys, values = keys[..., :hd], values[..., :hd]
+        s = torch.einsum("bshgd,bthd->bshgt", q32, keys.float()) * scale
+        t = i * bs + torch.arange(bs, device=qg.device)
+        mask = t[None, None, :] <= pos[:, :, None]  # [B, S, bs]
+        if window is not None:
+            mask = mask & (t[None, None, :] > pos[:, :, None] - window)
+        mask = mask[:, :, None, None, :]
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # zeroed where masked: a slab masked whole keeps m_new at NEG_INF,
+        # where exp(s - m_new) would be 1
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bshgt,bthd->bshgd", p.to(values.dtype).float(), values.float())
+        m = m_new
+    return acc / torch.where(l == 0.0, 1.0, l)[..., None]
+
+
 def paged_prefill_attention(
     q: torch.Tensor,
     k_layer: torch.Tensor,
@@ -218,11 +270,17 @@ def paged_prefill_attention(
     written; positions [B, S] their true positions. Query row attends
     ``t <= position`` (and ``t > position - window`` with a window).
     The pool's head dim may be ``pool_head_dim(hd)``; its padding columns
-    are not read. Returns [B, S, H_q, hd] in q.dtype."""
+    are not read. Returns [B, S, H_q, hd] in q.dtype. Contexts of
+    ``PREFILL_STREAM_MIN_T`` tokens and more take the streaming path."""
     B, S, Hq, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     Hkv = k_layer.shape[2]
     qg = q.reshape(B, S, Hkv, Hq // Hkv, hd)
+    if block_tables.shape[1] * k_layer.shape[1] >= PREFILL_STREAM_MIN_T:
+        out = _paged_prefill_streaming(qg, k_layer, v_layer, block_tables,
+                                       positions, scale=scale, window=window,
+                                       hd=hd)
+        return out.reshape(B, S, Hq, hd).to(q.dtype)
     keys, values = gather_kv(k_layer, v_layer, block_tables)  # [B,T,Hkv,*]
     keys, values = keys[..., :hd], values[..., :hd]
     T = keys.shape[1]

@@ -45,6 +45,14 @@ prefill syncs at lag 0, and its signatures ("prefill" or
 "prefill_chunk", tokens shape, tables shape) join the same set. On the
 CPU the same objects run every step eagerly.
 
+Each signature also has the reference's shape (kind, tokens shape, tables
+shape): ("decode", (B,), (B, nb)) and ("verify", (B, W), (B, nb)) for the
+graphs. ``on_new_signature`` (the engine's compile-event hook, as in the
+reference) is called with that shape the first time it is seen, so the
+engine's ``llm_compile_events`` counts what the reference's does; the
+graphs captured per sampled and masked variant are counted by
+``graphs_by_kind``.
+
 ``FAMILIES`` is the registry of model families the engine serves
 (``ray_tpu/serve/llm/decode.py`` ``FAMILIES``), kept in
 ``models/families.py`` so that training imports it without this module
@@ -59,8 +67,6 @@ kernels without calling a wrapper, and a profiler trace of the device
 counts them (``benchmarks/engine_profile.paged_launches``).
 """
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -193,8 +199,10 @@ class DecodeGraph:
         return self.out
 
     def _capture(self) -> None:
+        from ray_tpu_torch.serve.llm import obs
+
         fns = self.fns
-        t0 = time.perf_counter()
+        t0 = obs.clock()
         main = torch.cuda.current_stream(fns.device)
         side = torch.cuda.Stream(fns.device)
         side.wait_stream(main)
@@ -205,7 +213,7 @@ class DecodeGraph:
         with torch.cuda.graph(graph, pool=fns.pool):
             out = self._step()
         self.graph, self.out = graph, out
-        fns.capture_seconds += time.perf_counter() - t0
+        fns.capture_seconds += obs.clock() - t0
 
 
 class DecodeFns:
@@ -221,14 +229,22 @@ class DecodeFns:
         self.words = mask_words(model.cfg.vocab_size)
         self._verify = family(family_of(model.cfg)).verify_step
         self._signatures: set[tuple] = set()
+        # the signatures in the reference's shape (kind, tokens shape,
+        # tables shape); on_new_signature(shape) at each first sight
+        self._shapes: set[tuple] = set()
+        self.on_new_signature = None
         self._graphs: dict[tuple, DecodeGraph] = {}
         self.pool = (torch.cuda.graph_pool_handle()
                      if self.device.type == "cuda" else None)
         self.capture_seconds = 0.0
         self.kind_replays = {"decode": 0, "verify": 0}  # graph replays
 
-    def _note(self, sig: tuple) -> None:
+    def _note(self, sig: tuple, shape: tuple) -> None:
         self._signatures.add(sig)
+        if shape not in self._shapes:
+            self._shapes.add(shape)
+            if self.on_new_signature is not None:
+                self.on_new_signature(shape)
 
     @property
     def num_compiled_shapes(self) -> int:
@@ -239,6 +255,11 @@ class DecodeFns:
     @property
     def signatures(self) -> frozenset:
         return frozenset(self._signatures)
+
+    @property
+    def shapes(self) -> frozenset:
+        """The signatures in the reference's shape (``obs.shape_key``)."""
+        return frozenset(self._shapes)
 
     @property
     def replays(self) -> int:
@@ -262,18 +283,19 @@ class DecodeFns:
 
     def prefill(self, tokens, lengths, tables, start=None, sample=None):
         kind = "prefill" if start is None else "prefill_chunk"
-        self._note((kind, tuple(tokens.shape), tuple(tables.shape)))
+        sig = (kind, tuple(tokens.shape), tuple(tables.shape))
+        self._note(sig, sig)
         out, k, v = self.model.prefill(
             self.cache.k, self.cache.v, tokens, lengths, tables, start=start,
             sample=sample)
         self._same_pool(k, v)
         return out
 
-    def _graph(self, sig: tuple, layout) -> DecodeGraph:
+    def _graph(self, sig: tuple, shape: tuple, layout) -> DecodeGraph:
         g = self._graphs.get(sig)
         if g is None:
             g = self._graphs[sig] = DecodeGraph(self, sig, layout())
-            self._note(sig)
+            self._note(sig, shape)
         return g
 
     def decode_graph(self, B: int, nb: int, sampled: bool,
@@ -281,8 +303,9 @@ class DecodeFns:
         """The decode signature (B, nb, sampled, masked), made at its
         first use."""
         sig = ("decode", B, nb, bool(sampled), bool(masked))
-        return self._graph(sig, lambda: decode_layout(
-            B, nb, sampled, masked, self.words))
+        return self._graph(sig, ("decode", (B,), (B, nb)),
+                           lambda: decode_layout(B, nb, sampled, masked,
+                                                 self.words))
 
     def verify_graph(self, B: int, nb: int, W: int, sampled: bool,
                      masked: bool) -> DecodeGraph:
@@ -290,8 +313,9 @@ class DecodeFns:
         first use. W = speculative_k + 1 is fixed per engine: whether a
         row drafted is data (its draft length), not shape."""
         sig = ("verify", B, nb, W, bool(sampled), bool(masked))
-        return self._graph(sig, lambda: verify_layout(
-            B, nb, W, sampled, masked, self.words))
+        return self._graph(sig, ("verify", (B, W), (B, nb)),
+                           lambda: verify_layout(B, nb, W, sampled, masked,
+                                                 self.words))
 
     def step(self, inputs: dict, sampled: bool,
              masked: bool = False) -> torch.Tensor:

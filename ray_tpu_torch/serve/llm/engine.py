@@ -95,13 +95,28 @@ would. Admission takes the rank order when preemption is on, probes
 ``EngineOverloadedError`` past ``max_waiting`` requests or
 ``max_waiting_blocks`` worst-case blocks queued.
 
-What the port's engine leaves out of the JAX engine so far:
-observability beyond ``stats()`` and the sync records of
-``debug_dump()`` (``obs.py``, the flight recorder, the watchdog, the
-preemption metrics and timeline events, ``autoscaling_snapshot``), the
-chaos points, the Serve deployment (``api.py``: class-aware shedding,
-Retry-After), the router's prefix digests, sharded executors, and graphs
-for prefill (it runs eagerly).
+Observability and failure, as the JAX engine's: every metric the
+reference registers, by its name, in the port's own registry
+(``util/metrics.py``; ``obs.py``'s TTFT, TPOT, queue-wait and host-sync
+histograms, sync bytes, compile events, goodput and serving MFU); a
+timeline per request (``request_timeline``) whose finished events become
+``engine.*`` spans (``util/tracing.py``) when the submitter carried a
+trace context; one flight record per work step, with its sync's cost
+and lag (``debug_dump``); ``autoscaling_snapshot``; and the fail-closed
+paths: a step that raises writes one ``engine_died`` dump and fails
+every stream with ``EngineDiedError``, and with ``step_timeout_s`` a
+watchdog thread fails every stream of a wedged step and writes a
+``watchdog_timeout`` dump without the lock and without touching the
+device. Every duration reads ``obs.clock`` and every timestamp
+``obs.wall``; nothing of it reads a device tensor. The reference's chaos
+points fire at their counterpart sites (``_private/chaos.py``).
+
+What the port's engine leaves out of the JAX engine so far: the Serve
+deployment (``api.py``: class-aware shedding, Retry-After, the
+``/debug/llm`` endpoint, ``FleetAggregator``), the export of spans into
+the distributed core's task events, the disaggregated handoff
+(``kv_layout``), sharded executors, and graphs for prefill (it runs
+eagerly).
 """
 from __future__ import annotations
 
@@ -111,13 +126,14 @@ import math
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Any, Sequence
 
 import numpy as np
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._private import chaos, event_stats
 from ray_tpu_torch.exceptions import (
     DeadlineExceededError,
     EngineDiedError,
@@ -129,7 +145,7 @@ from ray_tpu_torch.ops import kv_cache as kv_ops
 from ray_tpu_torch.ops.paged_attention import resolve_backend
 from ray_tpu_torch.ops.quantization import resolve_quantization, stack_blocks
 from ray_tpu_torch.serve._shapes import pad_to_bucket, pow2_buckets
-from ray_tpu_torch.serve.llm import structured
+from ray_tpu_torch.serve.llm import obs, structured
 from ray_tpu_torch.serve.llm.decode import family, mask_words
 from ray_tpu_torch.serve.llm.drafter import build_drafter
 from ray_tpu_torch.serve.llm.executor import SingleDeviceExecutor
@@ -138,13 +154,62 @@ from ray_tpu_torch.serve.llm.kv_cache import (
     PagedKVCache,
     _block_key,
 )
+from ray_tpu_torch.util import metrics, tracing
 
 logger = logging.getLogger("ray_tpu_torch.serve.llm")
 
 _DONE = object()  # stream sentinel
 
-# sync records kept for debug_dump()
-_FLIGHT_RECORDS = 256
+# block-export syncs (demote, export_prefix) kept for debug_dump()
+_EXPORT_RECORDS = 256
+
+# window (obs.clock seconds) over which autoscaling_snapshot() turns
+# deadline-miss and rejection times into rates
+_SIGNAL_RATE_WINDOW_S = 30.0
+
+# window (obs.clock seconds) of per-step (time, tokens) samples behind the
+# llm_goodput_tokens_per_sec and llm_serving_mfu gauges
+_GOODPUT_WINDOW_S = 30.0
+
+
+def _pctile(samples, q: float) -> float:
+    """Nearest-rank percentile of a small window; 0.0 when empty."""
+    if not samples:
+        return 0.0
+    xs = sorted(samples)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+class _Window:
+    """The (clock, seconds, tokens) samples of one step kind within the
+    goodput window (at most 1024), with their running sums."""
+
+    MAX = 1024
+
+    def __init__(self):
+        self.samples: deque = deque()
+        self.seconds = 0.0
+        self.tokens = 0
+
+    def add(self, now: float, seconds: float, tokens: int,
+            horizon: float) -> None:
+        self.samples.append((now, seconds, tokens))
+        self.seconds += seconds
+        self.tokens += tokens
+        while self.samples and (self.samples[0][0] < horizon
+                                or len(self.samples) > self.MAX):
+            _, s, t = self.samples.popleft()
+            self.seconds -= s
+            self.tokens -= t
+        if not self.samples:
+            self.seconds = 0.0
+
+
+def _window_rate(clocks: deque, now: float) -> float:
+    """Events a second over the trailing window; prunes expired ones."""
+    while clocks and now - clocks[0] > _SIGNAL_RATE_WINDOW_S:
+        clocks.popleft()
+    return len(clocks) / _SIGNAL_RATE_WINDOW_S
 
 # sanity ceiling for max_new_tokens (submit() also checks max_seq_len)
 _MAX_NEW_TOKENS_CAP = 1 << 20
@@ -223,6 +288,7 @@ class EngineConfig:
     seed: int = 0                 # weight init seed (when params not given)
     max_waiting: int = 128        # admission queue bound (overload beyond)
     max_waiting_blocks: int | None = None  # worst-case block budget queued
+    step_timeout_s: float | None = None    # watchdog: wedged-step ceiling
     # prefill one prompt in slices of at most this many tokens, alternating
     # with decode steps; None -> the whole uncached rest in one call
     prefill_chunk_tokens: int | None = None
@@ -246,6 +312,13 @@ class EngineConfig:
     # Drafter | "ngram" | None (None drafts nothing); read only when
     # speculative_k > 0
     drafter: Any = "ngram"
+    # flight recorder: the last N step records, dumped as JSON when the
+    # engine dies, on a watchdog timeout and on shutdown(dump=...); dir:
+    # None -> $RAY_TPU_FLIGHT_DIR -> <tmp>/ray_tpu_flight (obs.dump_dir)
+    flight_recorder_steps: int = 256
+    flight_recorder_dir: str | None = None
+    # finished-request timelines kept for request_timeline()
+    timeline_history: int = 256
     # PreemptionConfig, or a dict of its fields; None disables priority
     # preemption (low-rank running streams parked on the host tier under
     # pressure, resumed when it clears)
@@ -258,7 +331,7 @@ class EngineConfig:
 class PreemptionConfig:
     """Thresholds for priority preemption (``EngineConfig.preemption``).
     Pressure is the fraction of usable KV blocks a new admission cannot
-    claim (reservations included); times are ``time.monotonic`` seconds."""
+    claim (reservations included); times are ``obs.clock`` seconds."""
 
     kv_pressure: float = 0.90   # park when pool pressure crosses this
     queue_wait_s: float = 0.25  # ... or a higher-rank wait exceeds this
@@ -310,12 +383,26 @@ class _Request:
         # generated; None otherwise), its last park time and park count
         "submitted_clock", "skips", "pending_resume", "preempted_clock",
         "preempt_count",
+        # observability: the phase timeline, the submitter's trace context
+        # (spans at finish), token clocks, the terminal reason, and the
+        # prompt tokens of this admission served by prefix hits
+        "trace_ctx", "timeline", "first_token_clock", "last_token_clock",
+        "finish_reason", "cached_tokens",
     )
 
-    def __init__(self, req_id, prompt, sampling: SamplingParams):
+    def __init__(self, req_id, prompt, sampling: SamplingParams,
+                 trace_ctx: dict | None = None):
         self.id = req_id
         self.prompt = list(prompt)
         self.sampling = sampling
+        self.trace_ctx = trace_ctx
+        # [{"event", "ts" (wall), ...}]: submitted, admitted, prefill
+        # chunks, first_token, tokens, preempted/resumed, the terminal one
+        self.timeline: list[dict] = []
+        self.first_token_clock: float | None = None
+        self.last_token_clock: float | None = None
+        self.finish_reason: str | None = None
+        self.cached_tokens = 0
         self.out: queue.Queue = queue.Queue()
         self.generated: list[int] = []
         self.reserved_blocks = 0
@@ -328,7 +415,7 @@ class _Request:
         self.inflight = 0
         self.blocks_released = False
         self.fsm = None
-        self.submitted_clock = time.monotonic()
+        self.submitted_clock = obs.clock()
         self.skips = 0
         self.pending_resume: list[int] | None = None
         self.preempted_clock: float | None = None
@@ -431,6 +518,13 @@ class LLMEngine:
             raise ValueError("speculative_k must be >= 0")
         self._drafter = (build_drafter(cfg.drafter)
                          if cfg.speculative_k > 0 else None)
+        if self._drafter is not None:
+            self.executor.speculative = {
+                "speculative_k": cfg.speculative_k,
+                "drafter": (cfg.drafter if isinstance(cfg.drafter, str)
+                            else type(cfg.drafter).__name__
+                            if cfg.drafter is not None else None),
+            }
         self._spec_drafted_total = 0    # draft tokens proposed
         self._spec_accepted_total = 0   # draft tokens accepted by verify
         self._spec_committed_total = 0  # tokens emitted by verify steps
@@ -465,17 +559,27 @@ class LLMEngine:
         self._next_id = 0
         self._auto_step = auto_step
         self._thread: threading.Thread | None = None
+        self._watchdog: threading.Thread | None = None
         self._stopped = False
+        # set by _fail_engine or the watchdog; read WITHOUT the lock (the
+        # watchdog must survive a step wedged while holding it)
         self._failed: EngineDiedError | None = None
+        # obs.clock at step entry, None between steps: a plain attribute
+        # the watchdog reads lock-free
+        self._step_begin: float | None = None
+        self._cancelled_total = 0
         # the one in-flight decode step (None when the lag is collapsed)
         self._pending: _PendingDecode | None = None
         # reusable numpy staging, two buffers per (name, shape) (see
         # _scratch_buf)
         self._scratch: dict[tuple, list] = {}
+        self._sync_seconds_total = 0.0
         self._sync_bytes_total = 0
+        self._last_sync: dict | None = None  # merged into the flight record
         self._prefill_tokens_total = 0  # prompt tokens computed by prefill
-        # one record per token sync: kind, rows, bytes and lag
-        self._flight: deque[dict] = deque(maxlen=_FLIGHT_RECORDS)
+        # block exports (demote captures, export_prefix): a device-to-host
+        # sync each, recorded apart from the step ring
+        self._export_syncs: deque[dict] = deque(maxlen=_EXPORT_RECORDS)
         # "prefill" | "decode" | None: drives prefill/decode alternation
         self.last_step_kind: str | None = None
         # model calls made, by kind ("prefill" counts whole-prompt and
@@ -483,6 +587,166 @@ class LLMEngine:
         self.num_prefill_calls = 0
         self.num_decode_steps = 0
         self.num_verify_steps = 0       # speculative verify steps
+        # cache-stat values already exported to the monotonic counters
+        self._exported = {"hit": 0, "evict": 0, "cow": 0, "prefill": 0,
+                          "demote": 0, "promote": 0}
+        # ---- observability ----
+        self._flight = obs.FlightRecorder(cfg.flight_recorder_steps)
+        # finished-request timelines, newest last, bounded
+        self._timelines: OrderedDict[Any, dict] = OrderedDict()
+        # this step's admissions and expiries, for its flight record
+        self._step_admitted = 0
+        self._step_expired = 0
+        # cache-stat values as of the previous flight record (deltas)
+        self._flight_prev = {"cow": 0, "evict": 0, "demote": 0,
+                             "promote": 0}
+        self._dumped = False  # one post-mortem dump per engine
+        # bounded windows behind autoscaling_snapshot()
+        self._queue_wait_window: deque[float] = deque(maxlen=256)
+        self._decode_step_window: deque[float] = deque(maxlen=256)
+        self._reject_clocks: deque[float] = deque(maxlen=512)
+        self._deadline_clocks: deque[float] = deque(maxlen=512)
+        self._last_snapshot: dict | None = None
+
+        self._m_tokens = metrics.counter(
+            "llm_engine_tokens_generated",
+            "Tokens generated by the serve/llm engine",
+        )
+        self._m_queue = metrics.gauge(
+            "llm_engine_queue_depth", "Requests waiting for admission"
+        )
+        self._m_util = metrics.gauge(
+            "llm_engine_kv_block_utilization",
+            "Fraction of usable KV blocks allocated",
+        )
+        self._m_latency = metrics.histogram(
+            "llm_engine_step_latency_seconds",
+            "Engine step latency by kind (prefill/decode)",
+            boundaries=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0),
+            tag_keys=("kind",),
+        )
+        self._m_rejected = metrics.counter(
+            "llm_requests_rejected",
+            "Requests rejected by engine admission control (overload)",
+        )
+        self._m_cancelled = metrics.counter(
+            "llm_requests_cancelled",
+            "Requests cancelled (client disconnect / explicit cancel)",
+        )
+        self._m_deadline = metrics.counter(
+            "llm_deadline_exceeded",
+            "Requests evicted because deadline_s expired mid-generation",
+        )
+        self._m_finished = metrics.counter(
+            "llm_requests_finished",
+            "Requests that completed generation normally (availability "
+            "SLO denominator)",
+        )
+        self._m_hit_tokens = metrics.counter(
+            "llm_prefix_hit_tokens",
+            "Prompt tokens served from the KV prefix cache (zero compute)",
+        )
+        self._m_evicted = metrics.counter(
+            "llm_prefix_evicted_blocks",
+            "Cached KV blocks evicted LRU to satisfy new allocations",
+        )
+        self._m_cow = metrics.counter(
+            "llm_cow_blocks",
+            "Copy-on-write block copies (writes into shared KV blocks)",
+        )
+        self._m_prefill_tokens = metrics.counter(
+            "llm_prefill_tokens",
+            "Prompt tokens actually computed by prefill (cache misses)",
+        )
+        self._m_spec_drafted = metrics.counter(
+            "llm_spec_drafted_tokens",
+            "Draft tokens proposed to speculative verify steps",
+        )
+        self._m_spec_accepted = metrics.counter(
+            "llm_spec_accepted_tokens",
+            "Draft tokens accepted by speculative verify steps",
+        )
+        self._m_spec_committed = metrics.counter(
+            "llm_spec_committed_tokens",
+            "Tokens committed by speculative verify steps (accepted + "
+            "corrected/bonus)",
+        )
+        self._m_demoted = metrics.counter(
+            "llm_kv_demoted_blocks",
+            "KV blocks demoted from the device pool into the host cache "
+            "tier on LRU eviction",
+        )
+        self._m_promoted = metrics.counter(
+            "llm_kv_promoted_blocks",
+            "Host-tier KV blocks promoted back into the device pool on "
+            "prefix hits",
+        )
+        self._m_host_blocks = metrics.gauge(
+            "llm_host_cache_blocks",
+            "Demoted KV blocks resident in the host cache tier",
+        )
+        self._m_structured = metrics.counter(
+            "llm_structured_requests",
+            "Requests admitted with a grammar constraint "
+            "(response_format / SamplingParams.structured)",
+        )
+        self._m_masked_frac = metrics.histogram(
+            "llm_structured_masked_fraction",
+            "Fraction of the vocab banned by the grammar allow-mask at "
+            "each constrained decode position",
+            boundaries=(0.5, 0.9, 0.99, 0.995, 0.999, 0.9999),
+        )
+        self._m_ttft = obs.ttft_histogram()
+        self._m_tpot = obs.tpot_histogram()
+        self._m_queue_wait = obs.queue_wait_histogram()
+        self._m_sync = obs.host_sync_histogram()
+        self._m_sync_bytes = obs.sync_bytes_counter()
+        self._m_compile = obs.compile_counter()
+        self._m_devices = metrics.gauge(
+            "llm_executor_devices",
+            "Devices driven by this engine's model executor",
+        )
+        self._m_devices.set(self.executor.num_devices)
+        # autoscaling signals, refreshed by every snapshot
+        self._m_as_queue = metrics.gauge(
+            "llm_queue_depth",
+            "Admission queue depth as seen by the autoscaler",
+        )
+        self._m_as_kv_free = metrics.gauge(
+            "llm_kv_free_blocks",
+            "Truly free (unallocated, uncached) KV blocks in the pool",
+        )
+        self._m_as_kv_pressure = metrics.gauge(
+            "llm_kv_pool_pressure",
+            "Fraction of the usable KV pool a new admission cannot claim "
+            "(allocations + reservations + quarantine)",
+        )
+        self._m_preemptions = metrics.counter(
+            "llm_preemptions_total",
+            "Running streams paused to the host KV tier to make room for "
+            "higher-priority work",
+        )
+        self._m_preempted_streams = metrics.gauge(
+            "llm_preempted_streams",
+            "Streams currently parked in the preempted state",
+        )
+        self._m_preempted_wait = metrics.histogram(
+            "llm_preempted_wait_seconds",
+            "Seconds a preempted stream spent parked before resuming",
+            boundaries=(0.01, 0.05, 0.25, 1.0, 5.0, 30.0, 120.0),
+        )
+        # serving goodput and MFU: 2 FLOPs a weight a token (forward only)
+        # over the executor's peak
+        self._flops_per_token = 2.0 * self.executor.num_params
+        self._peak_flops = self.executor.peak_tflops * 1e12
+        # per step kind: a window of (clock, step seconds, tokens) and the
+        # last derived rates
+        self._goodput_windows: dict[str, _Window] = {}
+        self._goodput_last: dict[str, dict] = {}
+        self._m_goodput = obs.goodput_gauge()
+        self._m_mfu = obs.mfu_gauge()
+        # compile events by shape key, at each new signature of DecodeFns
+        self.executor.on_new_signature = self._on_new_signature
 
     # ---------------- public API ----------------
 
@@ -490,9 +754,19 @@ class LLMEngine:
         self,
         prompt: Sequence[int],
         sampling: SamplingParams | None = None,
+        *,
+        trace_ctx: dict | None = None,
         **sampling_overrides,
     ) -> TokenStream:
-        """Enqueue one request; returns a stream of generated token ids."""
+        """Enqueue one request; returns a stream of generated token ids.
+
+        ``trace_ctx`` (``tracing.current_context()``'s shape; the
+        submitting thread's active span when None) makes the request's
+        timeline ``engine.*`` spans on its trace when it finishes. Raises
+        ``EngineOverloadedError`` past the admission limits and
+        ``EngineDiedError`` once the engine has failed."""
+        if trace_ctx is None:
+            trace_ctx = tracing.current_context()
         if sampling is None:
             sampling = SamplingParams(**sampling_overrides)
         elif sampling_overrides:
@@ -534,27 +808,43 @@ class LLMEngine:
                             f"token {t} (response_format mismatch on "
                             "resume?)"
                         )
+            self._m_structured.inc()
         if self._failed is not None:
             raise self._failed
         with self._lock:
             if self._stopped:
                 raise RuntimeError("engine is shut down")
+            if self._failed is not None:  # failed while this waited
+                raise self._failed
             if len(self._waiting) >= self.cfg.max_waiting or (
                 self.cfg.max_waiting_blocks is not None
                 and self._waiting_blocks + need > self.cfg.max_waiting_blocks
             ):
                 self._rejected_total += 1
+                self._m_rejected.inc()
+                self._reject_clocks.append(obs.clock())
                 raise EngineOverloadedError(
                     f"admission queue full ({len(self._waiting)} waiting, "
                     f"{self._waiting_blocks} worst-case blocks queued); "
                     "retry later"
                 )
-            req = _Request(self._next_id, prompt, sampling)
+            req = _Request(self._next_id, prompt, sampling, trace_ctx)
             req.fsm = fsm
             self._next_id += 1
+            self._tl(req, "submitted", prompt_tokens=len(prompt),
+                     max_new_tokens=sampling.max_new_tokens)
             self._waiting.append(req)
             self._waiting_blocks += need
+            self._m_queue.set(len(self._waiting))
             self._work.notify_all()
+        failed = self._failed
+        if failed is not None and not req.done:
+            # the watchdog fans out without the lock: it set _failed after
+            # the check above and may have listed the queue before the
+            # append, so this stream is failed here
+            req.done = True
+            req.out.put(failed)
+            req.out.put(_DONE)
         if self._auto_step:
             self._ensure_thread()
         return TokenStream(req)
@@ -579,26 +869,31 @@ class LLMEngine:
         call OR one batched decode (or verify) step. Returns False when
         there is nothing to prefill, decode or reconcile."""
         with self._lock:
-            self._expire_deadlines_locked()
-            if self._preemption is not None:
-                self._maybe_resume_locked()
-                self._maybe_preempt_locked()
-            self._admit_locked()
-            if self._prefilling and (
-                self.last_step_kind != "prefill"
-                or not self._running
-                or any(not r.started for r in self._prefilling)
-            ):
-                self._prefill_chunk_locked()
-                self.last_step_kind = "prefill"
-                return True
-            if self._running or self._pending is not None:
-                # a pending step with nothing running still needs a step:
-                # its tokens are reconciled and its rows' blocks freed
-                self._decode_locked()
-                self.last_step_kind = "decode"
-                return True
-            return False
+            self._step_begin = obs.clock()
+            try:
+                chaos.fire("engine.step")
+                self._step_expired = self._expire_deadlines_locked()
+                if self._preemption is not None:
+                    self._maybe_resume_locked()
+                    self._maybe_preempt_locked()
+                self._step_admitted = self._admit_locked()
+                if self._prefilling and (
+                    self.last_step_kind != "prefill"
+                    or not self._running
+                    or any(not r.started for r in self._prefilling)
+                ):
+                    self._prefill_chunk_locked()
+                    self.last_step_kind = "prefill"
+                    return True
+                if self._running or self._pending is not None:
+                    # a pending step with nothing running still needs a
+                    # step: its tokens are reconciled, its blocks freed
+                    self._decode_locked()
+                    self.last_step_kind = "decode"
+                    return True
+                return False
+            finally:
+                self._step_begin = None
 
     def cancel(self, request_id) -> bool:
         """Evict a waiting/prefilling/running request, fail its stream with
@@ -609,6 +904,9 @@ class LLMEngine:
             if req is None:
                 return False
             self._evict_locked(req)
+            self._cancelled_total += 1
+            self._m_cancelled.inc()
+            self._finish_obs_locked(req, "cancelled")
             req.out.put(
                 RequestCancelledError(f"request {request_id!r} cancelled")
             )
@@ -635,6 +933,8 @@ class LLMEngine:
                 "kv_high_water_blocks": cs.high_water_blocks,
                 "num_compiled_shapes": self.num_compiled_shapes,
                 "rejected_total": self._rejected_total,
+                "cancelled_total": self._cancelled_total,
+                "deadline_exceeded_total": self._deadline_total,
                 "prefix_hit_tokens": hit,
                 "prefix_hit_blocks": cs.prefix_hit_blocks,
                 "prefix_cached_blocks": self.cache.cached_blocks,
@@ -645,9 +945,10 @@ class LLMEngine:
                 "cow_blocks": cs.cow_copies,
                 "prefill_tokens_total": computed,
                 "prefix_hit_rate": hit / max(1, hit + computed),
+                "host_sync_seconds_total": round(
+                    self._sync_seconds_total, 6),
                 "host_sync_bytes_total": self._sync_bytes_total,
                 "decode_inflight": 1 if self._pending is not None else 0,
-                "deadline_exceeded_total": self._deadline_total,
                 "spec_steps": self.num_verify_steps,
                 "spec_drafted_tokens": self._spec_drafted_total,
                 "spec_accepted_tokens": self._spec_accepted_total,
@@ -659,6 +960,9 @@ class LLMEngine:
                 "structured_running": sum(
                     1 for r in self._running if r.fsm is not None),
                 "grammar_cache": structured.cache_stats(),
+                "goodput": {k: dict(v)
+                            for k, v in self._goodput_last.items()},
+                "executor": self.executor.describe(),
                 "failed": self._failed is not None,
             }
 
@@ -671,13 +975,105 @@ class LLMEngine:
     def num_compiled_shapes(self) -> int:
         return self.fns.num_compiled_shapes
 
-    def debug_dump(self) -> dict:
-        """The recent token-sync records (``steps``: kind, batch,
-        ``sync_bytes``, ``sync_lag``) and the pool's accounting."""
+    def request_timeline(self, request_id) -> dict | None:
+        """One request's phase timeline, live or recently finished:
+        ``{"request_id", "trace_id", "finish_reason", "events"}``, each
+        event ``{"event", "ts" (wall seconds), ...}``: submitted,
+        admitted, prefill / prefill_chunk, first_token, token, preempted,
+        resumed and the terminal one (finished, cancelled, expired,
+        failed, shutdown). The last ``timeline_history`` finished ones are
+        kept; None for an unknown id."""
         with self._lock:
-            return {"steps": list(self._flight),
-                    "cache": self.cache.debug_snapshot(),
-                    "stats": self.stats()}
+            r = self._find_locked(request_id)
+            if r is not None:
+                return self._timeline_dict(r)
+            return self._timelines.get(request_id)
+
+    def autoscaling_snapshot(self) -> dict:
+        """Saturation signals for an autoscaler: queue depth (by priority
+        class too) and its wait p95, the pool's pressure and free, cached,
+        quarantined and host blocks, deadline-miss and rejection rates
+        over a trailing window, the decode-step p50, parked streams and
+        the ``preempt_exhausted`` latch. Host state only. Refreshes the
+        ``llm_queue_depth``, ``llm_kv_free_blocks`` and
+        ``llm_kv_pool_pressure`` gauges and adds a flight record
+        (kind ``"autoscale_snapshot"``)."""
+        with self._lock:
+            return self._autoscaling_snapshot_locked()
+
+    def _autoscaling_snapshot_locked(self, record: bool = True) -> dict:
+        now = obs.clock()
+        cache = self.cache
+        usable = max(1, cache.cfg.usable_blocks)
+        snap = cache.debug_snapshot()
+        # the number the preemption trigger reads (_kv_pressure_locked)
+        pressure = self._kv_pressure_locked()
+        # host-resident blocks are cheaper to miss into than recompute:
+        # they discount the device pressure, bounded at zero
+        pressure_two_tier = max(0.0, pressure - snap["host_blocks"] / usable)
+        out = {
+            "ts_wall": obs.wall(),
+            "clock": now,
+            "queue_depth": len(self._waiting),
+            "queue_wait_p95_s": round(
+                _pctile(self._queue_wait_window, 0.95), 6),
+            "decode_step_p50_s": round(
+                _pctile(self._decode_step_window, 0.50), 6),
+            "kv_free_blocks": snap["free_blocks"],
+            "kv_cached_blocks": snap["cached_blocks"],
+            "kv_quarantined_blocks": snap["quarantined_blocks"],
+            "kv_pool_pressure": round(pressure, 4),
+            "kv_host_cached_blocks": snap["host_blocks"],
+            "kv_host_cache_bytes": snap["host_bytes"],
+            "kv_pressure_two_tier": round(pressure_two_tier, 4),
+            "prefix_digests": cache.prefix_digest_summary(),
+            "block_size": cache.cfg.block_size,
+            "vocab_size": self.model_cfg.vocab_size,
+            "deadline_miss_rate": round(
+                _window_rate(self._deadline_clocks, now), 4),
+            "rejection_rate": round(_window_rate(self._reject_clocks, now), 4),
+            "running": len(self._running),
+            "prefilling": len(self._prefilling),
+            "queue_depth_by_class": {
+                p: sum(1 for r in self._waiting if r.sampling.priority == p)
+                for p in _PRIORITIES
+            },
+            "preempted_streams": len(self._preempted),
+            "preempt_exhausted": self._preempt_exhausted,
+            "failed": self._failed is not None,
+        }
+        self._m_as_queue.set(out["queue_depth"])
+        self._m_as_kv_free.set(out["kv_free_blocks"])
+        self._m_as_kv_pressure.set(out["kv_pool_pressure"])
+        self._last_snapshot = out
+        if record:  # debug_dump() observes without touching the ring
+            self._flight.record(dict(out, kind="autoscale_snapshot",
+                                     ts=out["ts_wall"]))
+        return out
+
+    def debug_dump(self) -> dict:
+        """One post-mortem of the engine: the flight ring (``steps``: one
+        record a work step, with its sync's ``sync_ms``, ``sync_bytes``
+        and ``sync_lag``; compile and snapshot records), ``stats()``,
+        ``executor.describe()``, the pool's accounting, a fresh
+        autoscaling snapshot, the compiled shapes, the process's event
+        stats, the live trace ids and the block-export syncs
+        (``export_syncs``: demote captures and ``export_prefix``)."""
+        with self._lock:
+            return self._flight.dump("debug", extra={
+                "stats": self.stats(),
+                "executor": self.executor.describe(),
+                "cache": self.cache.debug_snapshot(),
+                "autoscaling_snapshot": self._autoscaling_snapshot_locked(
+                    record=False),
+                "compiled_shapes": sorted(
+                    obs.shape_key(s) for s in self.fns.shapes),
+                "archived_timelines": len(self._timelines),
+                "live_trace_ids": self._trace_ids_locked(
+                    list(self._waiting) + self._prefilling
+                    + self._running + self._preempted),
+                "export_syncs": list(self._export_syncs),
+            })
 
     # ---------------- prefix export / adoption ----------------
 
@@ -734,18 +1130,27 @@ class LLMEngine:
                                           stack_blocks(vs, axis=1))
         return resident
 
-    def shutdown(self) -> None:
+    def shutdown(self, dump: bool | str | None = None) -> None:
         """Stop stepping, fail every pending stream and return all KV
-        blocks to the pool."""
+        blocks to the pool. ``dump=True`` writes a flight-recorder dump to
+        the dump dir on the way out; a string is the file's path."""
         with self._lock:
             if self._stopped:
                 return
+            if dump:
+                self._dump("shutdown",
+                           path=dump if isinstance(dump, str) else None)
             self._stopped = True
-            self._fan_out_locked(RequestCancelledError("engine shut down"))
+            self._fan_out_locked(RequestCancelledError("engine shut down"),
+                                 "shutdown")
+            self._m_queue.set(0)
+            self._m_util.set(self.cache.utilization)
             self._work.notify_all()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
-            self._thread = None
+        for t in (self._thread, self._watchdog):
+            if t is not None:
+                t.join(timeout=5)
+        self._thread = None
+        self._watchdog = None
 
     # ---------------- scheduler internals (lock held) ----------------
 
@@ -781,11 +1186,14 @@ class LLMEngine:
             self._prefilling.remove(r)
         elif r in self._preempted:
             self._preempted.remove(r)
+            self._m_preempted_streams.set(len(self._preempted))
         else:
             self._waiting.remove(r)
             self._waiting_blocks -= self._queued_blocks(r)
         r.done = True  # before release: an in-flight row defers it
         self._release_blocks_locked(r)
+        self._m_queue.set(len(self._waiting))
+        self._m_util.set(self.cache.utilization)
         self._work.notify_all()
 
     def _queued_blocks(self, r: _Request) -> int:
@@ -794,21 +1202,25 @@ class LLMEngine:
         return self.cache.cfg.blocks_for(
             len(r.prompt) + r.sampling.max_new_tokens)
 
-    def _expire_deadlines_locked(self) -> None:
+    def _expire_deadlines_locked(self) -> int:
         """Evict every request whose deadline passed (blocks back once,
         deferred past an in-flight step as any eviction), fail its stream
-        with ``DeadlineExceededError`` and end it."""
-        now = time.monotonic()
+        with ``DeadlineExceededError`` and end it. -> how many."""
+        now = obs.clock()
         expired = [r for r in (*self._waiting, *self._prefilling,
                                *self._running, *self._preempted)
                    if r.deadline is not None and now >= r.deadline]
         for r in expired:
             self._evict_locked(r)
             self._deadline_total += 1
+            self._m_deadline.inc()
+            self._deadline_clocks.append(obs.clock())
+            self._finish_obs_locked(r, "expired")
             r.out.put(DeadlineExceededError(
                 f"request {r.id!r} deadline ({r.sampling.deadline_s}s) "
                 f"expired after {len(r.generated)} tokens"))
             r.out.put(_DONE)
+        return len(expired)
 
     # ---------------- priority preemption ----------------
 
@@ -845,7 +1257,7 @@ class LLMEngine:
         if not self._waiting:
             self._preempt_exhausted = False
             return
-        now = time.monotonic()
+        now = obs.clock()
         waiter = max(self._waiting, key=lambda rq: self._rank_locked(rq, now))
         w_rank = self._rank_locked(waiter, now)
         if not (self._kv_pressure_locked() >= pc.kv_pressure
@@ -871,6 +1283,7 @@ class LLMEngine:
         resident token and demote it to the host tier in one export,
         give its blocks back once and reset the row to its pre-admission
         shape. Its resume re-admits prompt + generated tokens."""
+        chaos.fire("llm.preempt", request=r.id, priority=r.sampling.priority)
         if self._pending is not None:
             self._reconcile_locked(self._pending)
         if r.done or r not in self._running:
@@ -880,13 +1293,15 @@ class LLMEngine:
         resident = r.total_len - 1
         if self.cfg.prefix_caching:
             self.cache.register_prefix(r.id, chain, resident)
-        self.cache.demote_chain(chain, resident)
+        demoted = self.cache.demote_chain(chain, resident,
+                                          trace_ctx=r.trace_ctx)
         self._running.remove(r)
         self._release_blocks_locked(r)
         r.blocks_released = False
         r.reserved_blocks = 0
         r.drawn_blocks = 0
         r.prefill_done = 0
+        r.cached_tokens = 0
         r.started = False
         r.skips = 0
         r.table_np = None
@@ -896,6 +1311,11 @@ class LLMEngine:
         r.preempt_count += 1
         self._preempted.append(r)
         self._preempted_total += 1
+        self._m_preemptions.inc()
+        self._m_preempted_streams.set(len(self._preempted))
+        self._m_util.set(self.cache.utilization)
+        self._tl(r, "preempted", generated=len(r.generated),
+                 priority=r.sampling.priority, demoted_blocks=demoted)
         return True
 
     def _maybe_resume_locked(self) -> None:
@@ -906,7 +1326,7 @@ class LLMEngine:
         stays set: a resumed stream keeps aging from its park, so it is
         soon no longer preemptible."""
         pc = self._preemption
-        now = time.monotonic()
+        now = obs.clock()
         while self._preempted:
             cand = max(self._preempted,
                        key=lambda r: (self._rank_locked(r, now),
@@ -921,6 +1341,13 @@ class LLMEngine:
                 break
             self._preempted.remove(cand)
             self._prefilling.append(cand)
+            parked = now - cand.preempted_clock
+            self._m_preempted_wait.observe(parked)
+            self._m_preempted_streams.set(len(self._preempted))
+            chaos.fire("llm.resume_preempted", request=cand.id,
+                       parked_s=parked)
+            self._tl(cand, "resumed", parked_ms=round(parked * 1000.0, 3),
+                     cached_tokens=cand.cached_tokens)
 
     # ---------------- admission ----------------
 
@@ -953,11 +1380,18 @@ class LLMEngine:
         req.reserved_blocks = need
         self.cache.allocate(req.id)
         if self.cfg.prefix_caching:
+            promoted0 = self.cache.stats.promoted_blocks
             hit_tokens = self.cache.assign_prefix(req.id, toks,
                                                   max_blocks=max_hit_blocks)
             req.drawn_blocks += hit_tokens // bs
             # a full-chain hit still recomputes the LAST token
             req.prefill_done = min(hit_tokens, len(toks) - 1)
+            req.cached_tokens = req.prefill_done
+            promoted = self.cache.stats.promoted_blocks - promoted0
+            if req.trace_ctx and promoted:
+                # host-tier promotions for THIS admission, on its trace
+                self._tl(req, "kv_promote", blocks=promoted,
+                         hit_tokens=hit_tokens)
         return True
 
     def _admit_locked(self) -> int:
@@ -970,7 +1404,7 @@ class LLMEngine:
         if not self._waiting:
             return 0
         if self._preemption is not None and len(self._waiting) > 1:
-            now = time.monotonic()
+            now = obs.clock()
             order = sorted(self._waiting,
                            key=lambda rq: -self._rank_locked(rq, now))
         else:
@@ -989,12 +1423,19 @@ class LLMEngine:
                 self._waiting_blocks -= self._queued_blocks(req)
                 self._prefilling.append(req)
                 admitted += 1
+                wait = obs.clock() - req.submitted_clock
+                self._m_queue_wait.observe(wait)
+                self._queue_wait_window.append(wait)
+                self._tl(req, "admitted", cached_tokens=req.cached_tokens,
+                         reserved_blocks=req.reserved_blocks)
             elif probed >= probe_budget:
                 break
             else:
                 probed += 1
-        if admitted and head in self._waiting:
-            head.skips += 1  # an admission jumped past the head
+        if admitted:
+            if head in self._waiting:
+                head.skips += 1  # an admission jumped past the head
+            self._m_queue.set(len(self._waiting))
         return admitted
 
     def _table_for(self, r: _Request, nb: int) -> np.ndarray:
@@ -1015,6 +1456,7 @@ class LLMEngine:
         staged = self.cache.take_pending_promotions()
         if not staged:
             return
+        chaos.fire("llm.kv.promote", blocks=len(staged))
         ids = [b for b, _, _ in staged]
         self.executor.land_blocks(
             ids,
@@ -1024,14 +1466,17 @@ class LLMEngine:
         self.cache.promotions_landed(ids)
 
     def _metered_export(self, block_ids: list[int], kind: str):
-        """``executor.export_blocks``, recorded as a device-to-host sync
-        of ``kind`` (it waits for every step queued before it)."""
+        """``executor.export_blocks``, a device-to-host sync (it waits for
+        every step queued before it), recorded in ``debug_dump()``'s
+        ``export_syncs`` as ``kind`` ("demote" or "export"), with its
+        blocks, bytes, ms and whether a step was in flight."""
+        t0 = obs.clock()
         k, v = self.executor.export_blocks(block_ids)
-        nbytes = kv_ops.planes_nbytes(k, v)
-        self._sync_bytes_total += nbytes
-        self._flight.append({"kind": kind, "batch": len(block_ids),
-                             "sync_bytes": int(nbytes),
-                             "sync_lag": 0 if self._pending is None else 1})
+        self._export_syncs.append({
+            "kind": kind, "batch": len(block_ids),
+            "sync_bytes": int(kv_ops.planes_nbytes(k, v)),
+            "sync_ms": round((obs.clock() - t0) * 1000.0, 3),
+            "sync_lag": 0 if self._pending is None else 1})
         return k, v
 
     def _prefill_chunk_locked(self) -> None:
@@ -1040,6 +1485,11 @@ class LLMEngine:
         take the fresh path (start=None); anything mid-prompt or
         prefix-seeded takes the chunked path at true positions."""
         batch = self._prefilling[: self.cfg.max_prefill_batch]
+        chaos.fire("engine.prefill", batch=len(batch))
+        if self._failed is not None:
+            return  # the watchdog failed the engine during the delay above
+        t0 = obs.clock()
+        t0_wall = obs.wall()
         # promotions land before capacity and copy-on-write work
         self._apply_promotions_locked()
         bs = self.cfg.block_size
@@ -1098,13 +1548,19 @@ class LLMEngine:
             )
         # first tokens sync at once (lag 0): the first token must not wait
         # for the next decode step
-        host = self._sync_tokens_locked(toks_dev, "prefill", len(batch),
-                                        lag=0)
+        host = self._sync_tokens_locked(toks_dev, lag=0)
         self.num_prefill_calls += 1
+        # one duration for the histogram, the flight record, event stats
+        # and the rows' timeline entries: copies, staging, the call and
+        # the sync
+        dt = obs.clock() - t0
+        kind = "prefill" if fresh else "prefill_chunk"
         for i, (r, n) in enumerate(zip(batch, ns)):
             toks = r.prefill_tokens
             r.prefill_done += n
             self._prefill_tokens_total += n
+            self._tl(r, kind, ts=t0_wall, dur_ms=round(dt * 1000.0, 3),
+                     tokens=n, prefill_done=r.prefill_done)
             if self.cfg.prefix_caching:
                 self.cache.register_prefix(r.id, toks, r.prefill_done)
             if r.prefill_done >= len(toks):
@@ -1116,6 +1572,10 @@ class LLMEngine:
                 self._emit_token_locked(r, int(host[i]))
                 if not r.done:
                     self._running.append(r)
+        self._step_done_locked(kind, t0_wall, dt, sum(ns), batch=len(batch),
+                               bucket_b=B, bucket_len=S, nb=nb,
+                               tokens=int(sum(ns)),
+                               trace_ids=self._trace_ids_locked(batch))
 
     def _decode_locked(self) -> None:
         """One pipelined decode iteration. Steady state (the eligible
@@ -1125,6 +1585,11 @@ class LLMEngine:
         sync finds N done. Any batch change first collapses the lag:
         reconcile the pending step, rebuild the batch and dispatch from
         host tokens."""
+        chaos.fire("engine.decode", batch=len(self._running))
+        if self._failed is not None:
+            return  # the watchdog failed the engine during the delay above
+        t0 = obs.clock()
+        t0_wall = obs.wall()
         bs = self.cfg.block_size
         pending = self._pending
 
@@ -1137,6 +1602,7 @@ class LLMEngine:
                     < r.sampling.max_new_tokens]
 
         batch = eligible()
+        emitted = 0
         # speculative draft-and-verify: drafting needs the rows' committed
         # tokens on the host, so a verify step is never dispatched ahead.
         # When any row drafts, collapse the lag, re-draft on the
@@ -1146,13 +1612,14 @@ class LLMEngine:
             proposals = self._propose_drafts_locked(batch)
             if proposals is not None:
                 if pending is not None:
-                    self._reconcile_locked(pending)
+                    emitted += self._reconcile_locked(pending)
                     pending = None
                     batch = eligible()
                     proposals = (self._propose_drafts_locked(batch)
                                  if batch else None)
                 if batch and proposals is not None:
-                    self._verify_locked(batch, proposals)
+                    self._verify_locked(batch, proposals, t0, t0_wall,
+                                        emitted)
                     return
         # list equality is element identity here: the same _Request
         # objects in the same order <=> nothing joined, finished or left.
@@ -1163,11 +1630,15 @@ class LLMEngine:
         steady = (pending is not None and batch == pending.batch
                   and not constrained)
         if pending is not None and not steady:
-            self._reconcile_locked(pending)
+            emitted += self._reconcile_locked(pending)
             pending = None
             batch = eligible()
         if not batch:
-            return  # a drain step: the reconcile above retired the lag
+            # a drain step: the reconcile above retired the lag; recorded,
+            # so the ring shows the lag collapsing
+            self._step_done_locked("decode", t0_wall, obs.clock() - t0,
+                                   emitted, batch=0, tokens=emitted)
+            return
         self._apply_promotions_locked()
         pairs = []
         for r in batch:
@@ -1213,26 +1684,34 @@ class LLMEngine:
         self._pending = _PendingDecode(tokens=nxt, batch=batch)
         if steady:
             # reconcile step N only after dispatching N+1
-            self._reconcile_locked(pending)
+            emitted += self._reconcile_locked(pending)
+        dt = obs.clock() - t0
+        self._decode_step_window.append(dt)
+        self._step_done_locked("decode", t0_wall, dt, emitted,
+                               batch=len(batch), bucket_b=B, bucket_len=ctx,
+                               nb=nb, tokens=emitted,
+                               trace_ids=self._trace_ids_locked(batch))
 
-    def _reconcile_locked(self, pending: _PendingDecode) -> None:
+    def _reconcile_locked(self, pending: _PendingDecode) -> int:
         """Collapse the lag for one in-flight decode step: sync its ids,
         flush the quarantine (the sync proves every earlier dispatch
         executed), then emit per row. Rows that ended after the dispatch
         (EOS raced the lag, cancel) drop their speculative token and
-        release their blocks, exactly once."""
+        release their blocks, exactly once. -> tokens emitted."""
         if self._pending is pending:
             self._pending = None
-        toks = self._sync_tokens_locked(pending.tokens, "decode",
-                                        len(pending.batch), lag=1)
+        toks = self._sync_tokens_locked(pending.tokens, lag=1)
         self.cache.flush_quarantine()
+        emitted = 0
         for i, r in enumerate(pending.batch):
             r.inflight -= 1
             if r.done:
                 self._release_blocks_locked(r)
             else:
                 self._emit_token_locked(r, int(toks[i]))
+                emitted += 1
         self._running = [r for r in self._running if not r.done]
+        return emitted
 
     def _propose_drafts_locked(self, batch: list) -> list[list[int]] | None:
         """Up to ``speculative_k`` draft tokens a row from the drafter,
@@ -1262,7 +1741,8 @@ class LLMEngine:
             any_draft = any_draft or bool(clean)
         return out if any_draft else None
 
-    def _verify_locked(self, batch: list, proposals: list[list[int]]) -> None:
+    def _verify_locked(self, batch: list, proposals: list[list[int]],
+                       t0: float, t0_wall: float, emitted: int) -> None:
         """One synchronous verify step over ``batch`` (the lag is
         collapsed): stage the [B, W] window (column 0 each row's last
         committed token, then its drafts; W = speculative_k + 1 for every
@@ -1333,39 +1813,61 @@ class LLMEngine:
             # verdict can never overrun the budget
             committed = max(1, min(int(packed[i, 0]), dl + 1))
             accepted += committed - 1
+            if r.trace_ctx:
+                # a traced row's window outcome (one engine.verify span)
+                self._tl(r, "verify_window", ts=t0_wall,
+                         dur_ms=round((obs.clock() - t0) * 1000.0, 3),
+                         drafted=dl, accepted=committed - 1, window=W)
             for j in range(committed):
                 self._emit_token_locked(r, int(packed[i, 1 + j]))
                 committed_total += 1
                 if r.done:
                     break
         self._running = [r for r in self._running if not r.done]
+        drafted = sum(draft_lens)
         self.num_verify_steps += 1
-        self._spec_drafted_total += sum(draft_lens)
+        self._spec_drafted_total += drafted
         self._spec_accepted_total += accepted
         self._spec_committed_total += committed_total
+        if drafted:
+            self._m_spec_drafted.inc(drafted)
+        if accepted:
+            self._m_spec_accepted.inc(accepted)
+        self._m_spec_committed.inc(committed_total)
+        dt = obs.clock() - t0
+        self._decode_step_window.append(dt)
+        self._step_done_locked("verify", t0_wall, dt,
+                               emitted + committed_total, batch=len(batch),
+                               bucket_b=B, bucket_len=ctx, nb=nb, window=W,
+                               drafted=drafted, accepted=accepted,
+                               tokens=emitted + committed_total,
+                               trace_ids=self._trace_ids_locked(batch))
 
     def _sync_verify_locked(self, packed_dev, rows: int) -> np.ndarray:
         """The verify step's device->host sync: its packed [B, W + 1] int32
-        verdicts, metered and recorded as kind "verify" at lag 0."""
+        verdicts (``rows`` of them real), timed and metered at lag 0."""
+        t0 = obs.clock()
         packed = self.executor.sync_verify(packed_dev)
-        self._sync_bytes_total += packed.nbytes
-        self._flight.append({"kind": "verify", "batch": rows,
-                             "sync_bytes": int(packed.nbytes),
-                             "sync_lag": 0})
+        self._metered_sync(obs.clock() - t0, packed.nbytes, lag=0)
         return packed
 
-    def _sync_tokens_locked(self, ids, kind: str, rows: int, *,
-                            lag: int) -> np.ndarray:
-        """THE device->host sync: a step's O(batch) int32 ids, metered.
-        ``lag`` is the number of dispatches between the step that made
-        them and this sync (0: prefill's immediate sync; 1: the pipelined
-        decode)."""
+    def _sync_tokens_locked(self, ids, *, lag: int) -> np.ndarray:
+        """THE device->host sync: a step's O(batch) int32 ids, timed and
+        metered. ``lag`` is the number of dispatches between the step that
+        made them and this sync (0: prefill's immediate sync; 1: the
+        pipelined decode); it lands in the step's flight record."""
+        t0 = obs.clock()
         toks = self.executor.sync_tokens(ids)
-        self._sync_bytes_total += toks.nbytes
-        self._flight.append({"kind": kind, "batch": rows,
-                             "sync_bytes": int(toks.nbytes),
-                             "sync_lag": lag})
+        self._metered_sync(obs.clock() - t0, toks.nbytes, lag=lag)
         return toks
+
+    def _metered_sync(self, dt: float, nbytes: int, *, lag: int) -> None:
+        self._m_sync.observe(dt)
+        self._m_sync_bytes.inc(nbytes)
+        self._sync_seconds_total += dt
+        self._sync_bytes_total += nbytes
+        self._last_sync = {"sync_ms": round(dt * 1000.0, 3),
+                           "sync_bytes": int(nbytes), "sync_lag": lag}
 
     def _sample_args_locked(self, batch: list, B: int) -> dict:
         """Per-row sampling controls as [B] host arrays; padding rows are
@@ -1397,6 +1899,7 @@ class LLMEngine:
             for i, r in enumerate(batch):
                 if r.fsm is not None:
                     mask[i] = r.fsm.allow_row()
+                    self._m_masked_frac.observe(r.fsm.masked_fraction())
             out["mask"] = mask
         return out
 
@@ -1427,7 +1930,18 @@ class LLMEngine:
                 self._complete_locked(r)
                 return
         r.generated.append(tok)
+        now = obs.clock()
+        index = r.sampling.start_index + len(r.generated) - 1
+        if r.first_token_clock is None:
+            r.first_token_clock = now
+            self._m_ttft.observe(now - r.submitted_clock)
+            self._tl(r, "first_token", index=index)
+        else:
+            self._m_tpot.observe(now - r.last_token_clock)
+            self._tl(r, "token", index=index)
+        r.last_token_clock = now
         r.out.put(tok)
+        self._m_tokens.inc()
         if (
             len(r.generated) >= r.sampling.max_new_tokens
             or is_eos
@@ -1438,6 +1952,7 @@ class LLMEngine:
 
     def _complete_locked(self, r: _Request) -> None:
         r.done = True
+        self._finish_obs_locked(r, "finished")
         r.out.put(_DONE)
         # last: a row ending while its next token is in flight defers the
         # free to that step's reconcile (exactly-once release)
@@ -1482,12 +1997,304 @@ class LLMEngine:
                     return True
         return False
 
-    def _fan_out_locked(self, err: BaseException) -> None:
-        """Fail every live stream with ``err`` and return all blocks."""
+    def _sync_cache_counters_locked(self) -> None:
+        """Export the cache stats' growth since the last export to the
+        monotonic counters (the stats are plain ints)."""
+        cs = self.cache.stats
+        for key, value, counter in (
+            ("hit", cs.prefix_hit_tokens, self._m_hit_tokens),
+            ("evict", cs.prefix_evicted_blocks, self._m_evicted),
+            ("cow", cs.cow_copies, self._m_cow),
+            ("prefill", self._prefill_tokens_total, self._m_prefill_tokens),
+            ("demote", cs.demoted_blocks, self._m_demoted),
+            ("promote", cs.promoted_blocks, self._m_promoted),
+        ):
+            delta = value - self._exported[key]
+            if delta > 0:
+                counter.inc(delta)
+                self._exported[key] = value
+        tier = self.cache.host_tier
+        self._m_host_blocks.set(0 if tier is None else tier.blocks)
+
+    def _step_done_locked(self, kind: str, t_wall: float, dt: float,
+                          retired: int, **fields) -> None:
+        """A work step's bookkeeping: the utilization gauge, the cache
+        counters, the step-latency histogram, goodput (``retired``
+        tokens), event stats and one flight record (``fields`` join it)."""
+        self._m_util.set(self.cache.utilization)
+        self._sync_cache_counters_locked()
+        self._m_latency.observe(dt, tags={"kind": kind})
+        self._goodput_record_locked(kind, dt, int(retired))
+        event_stats.record(f"llm.engine.step.{kind}", dt)
+        self._flight_record_locked(kind, t_wall, dt, **fields)
+
+    def _goodput_record_locked(self, kind: str, dt: float,
+                               tokens: int) -> None:
+        """Fold one step's (seconds, tokens) into the windowed goodput and
+        MFU gauges of its kind. ``dt`` is the step's host clock: on the
+        lag-1 steady path it approximates one device step (dispatching
+        N + 1 overlaps N on the device); on lag-0 paths (prefill, verify,
+        a drain) it includes the blocking sync (the reference's "lag-1
+        caveat"). MFU: goodput x 2 n_params FLOPs a token over the
+        executor's peak. O(1) a step: the window keeps running sums (the
+        reference sums its up to 1024 samples every step)."""
+        now = obs.clock()
+        win = self._goodput_windows.get(kind)
+        if win is None:
+            win = self._goodput_windows[kind] = _Window()
+        win.add(now, float(dt), int(tokens), now - _GOODPUT_WINDOW_S)
+        dev_s, toks = win.seconds, win.tokens
+        if dev_s <= 0.0 or toks <= 0:
+            return
+        tps = toks / dev_s
+        mfu = (tps * self._flops_per_token / self._peak_flops
+               if self._peak_flops > 0.0 else 0.0)
+        self._m_goodput.set(tps, tags={"kind": kind})
+        self._m_mfu.set(mfu, tags={"kind": kind})
+        self._goodput_last[kind] = {
+            "tokens_per_sec": round(tps, 3),
+            "mfu": round(mfu, 6),
+            "window_steps": len(win.samples),
+            "window_device_s": round(dev_s, 6),
+            "window_tokens": toks,
+        }
+
+    # ---------------- observability ----------------
+
+    def _tl(self, r: _Request, event: str, ts: float | None = None,
+            **attrs) -> None:
+        """Append one phase event to a request's timeline."""
+        e = {"event": event, "ts": obs.wall() if ts is None else ts}
+        if attrs:
+            e.update(attrs)
+        r.timeline.append(e)
+
+    def _timeline_dict(self, r: _Request) -> dict:
+        return {
+            "request_id": r.id,
+            "trace_id": r.trace_ctx["trace_id"] if r.trace_ctx else None,
+            "finish_reason": r.finish_reason,
+            "events": list(r.timeline),
+        }
+
+    def _finish_obs_locked(self, r: _Request, reason: str) -> None:
+        """A request's terminal bookkeeping, once: the terminal timeline
+        event, the archived timeline and, for a traced request, its
+        spans."""
+        if r.finish_reason is not None:
+            return
+        r.finish_reason = reason
+        if reason == "finished":
+            self._m_finished.inc()
+        self._tl(r, reason, tokens=len(r.generated))
+        self._timelines[r.id] = self._timeline_dict(r)
+        while len(self._timelines) > self.cfg.timeline_history:
+            self._timelines.popitem(last=False)
+        if r.trace_ctx:
+            try:
+                self._emit_spans(r)
+            except Exception as e:  # noqa: BLE001 — spans are best-effort
+                logger.warning("span emission failed for %r: %r", r.id, e)
+
+    def _emit_spans(self, r: _Request) -> None:
+        """A finished request's timeline as spans: one ``engine.request``
+        under the submitter's span, with ``engine.queued``, one
+        ``engine.prefill[_chunk]`` a chunk, an ``engine.first_token``
+        marker, ``engine.preempted`` a park, ``kv.promote`` markers, one
+        ``engine.verify`` over the speculation windows and one
+        ``engine.decode`` over the tokens."""
+        tid = r.trace_ctx["trace_id"]
+        events = r.timeline
+        start = events[0]["ts"]
+        end = events[-1]["ts"]
+        ttft_ts = next(
+            (e["ts"] for e in events if e["event"] == "first_token"), None)
+        root = tracing.record_span(
+            "engine.request", trace_id=tid,
+            parent_span_id=r.trace_ctx.get("parent_span_id"),
+            start=start, end=end, kind="engine",
+            attrs={
+                "request_id": str(r.id),
+                "finish_reason": r.finish_reason,
+                "prompt_tokens": len(r.prompt),
+                "cached_tokens": r.cached_tokens,
+                "tokens": len(r.generated),
+                "preempt_count": r.preempt_count,
+                "ttft_s": (round(ttft_ts - start, 6)
+                           if ttft_ts is not None else None),
+            },
+        )
+        first_ts = last_ts = None
+        decode_tokens = 0
+        preempted_at: dict | None = None
+        verify_windows = drafted = v_accepted = 0
+        v_start = v_end = None
+        for e in events:
+            ev = e["event"]
+            if ev == "admitted":
+                tracing.record_span(
+                    "engine.queued", trace_id=tid, parent_span_id=root,
+                    start=start, end=e["ts"], kind="engine", attrs={})
+            elif ev in ("prefill", "prefill_chunk"):
+                tracing.record_span(
+                    f"engine.{ev}", trace_id=tid, parent_span_id=root,
+                    start=e["ts"],
+                    end=e["ts"] + e.get("dur_ms", 0.0) / 1000.0,
+                    kind="engine",
+                    attrs={"tokens": e.get("tokens"),
+                           "prefill_done": e.get("prefill_done")})
+            elif ev == "first_token":
+                first_ts = last_ts = e["ts"]
+                tracing.record_span(
+                    "engine.first_token", trace_id=tid,
+                    parent_span_id=root, start=e["ts"], end=e["ts"],
+                    kind="marker", attrs={"index": e.get("index")})
+            elif ev == "token":
+                last_ts = e["ts"]
+                decode_tokens += 1
+            elif ev == "preempted":
+                preempted_at = e
+            elif ev == "resumed" and preempted_at is not None:
+                tracing.record_span(
+                    "engine.preempted", trace_id=tid, parent_span_id=root,
+                    start=preempted_at["ts"], end=e["ts"], kind="engine",
+                    attrs={"parked_ms": e.get("parked_ms"),
+                           "priority": preempted_at.get("priority"),
+                           "demoted_blocks":
+                               preempted_at.get("demoted_blocks"),
+                           "cached_tokens": e.get("cached_tokens")})
+                preempted_at = None
+            elif ev == "verify_window":
+                verify_windows += 1
+                drafted += e.get("drafted", 0)
+                v_accepted += e.get("accepted", 0)
+                if v_start is None:
+                    v_start = e["ts"]
+                v_end = e["ts"] + e.get("dur_ms", 0.0) / 1000.0
+            elif ev == "kv_promote":
+                tracing.record_span(
+                    "kv.promote", trace_id=tid, parent_span_id=root,
+                    start=e["ts"], end=e["ts"], kind="kv",
+                    attrs={"blocks": e.get("blocks"),
+                           "hit_tokens": e.get("hit_tokens")})
+        if preempted_at is not None:  # still parked at its end
+            tracing.record_span(
+                "engine.preempted", trace_id=tid, parent_span_id=root,
+                start=preempted_at["ts"], end=end, kind="engine",
+                attrs={"priority": preempted_at.get("priority"),
+                       "resumed": False})
+        if verify_windows:
+            tracing.record_span(
+                "engine.verify", trace_id=tid, parent_span_id=root,
+                start=v_start, end=v_end, kind="engine",
+                attrs={"windows": verify_windows, "drafted": drafted,
+                       "accepted": v_accepted})
+        if first_ts is not None and last_ts > first_ts:
+            tracing.record_span(
+                "engine.decode", trace_id=tid, parent_span_id=root,
+                start=first_ts, end=last_ts, kind="engine",
+                attrs={"tokens": decode_tokens})
+
+    def _trace_ids_locked(self, batch) -> list[str]:
+        """The trace ids of a step's traced rows (at most 8)."""
+        out = []
+        for r in batch:
+            if r.trace_ctx:
+                out.append(r.trace_ctx["trace_id"])
+                if len(out) >= 8:
+                    break
+        return out
+
+    def _flight_record_locked(self, kind: str, t_wall: float, dt: float,
+                              **fields) -> None:
+        """One ring record a work step: a few host ints and one append,
+        no device access. The step that paid for a sync carries its cost
+        and lag."""
+        cs = self.cache.stats
+        tier = self.cache.host_tier
+        rec = {
+            "kind": kind,
+            "ts": round(t_wall, 6),
+            "dur_ms": round(dt * 1000.0, 3),
+            "admitted": self._step_admitted,
+            "expired": self._step_expired,
+            "cow": cs.cow_copies - self._flight_prev["cow"],
+            "evicted_blocks": (cs.prefix_evicted_blocks
+                               - self._flight_prev["evict"]),
+            "kv_util": round(self.cache.utilization, 4),
+            "waiting": len(self._waiting),
+            "prefilling": len(self._prefilling),
+            "running": len(self._running),
+            "host_blocks": 0 if tier is None else tier.blocks,
+            "host_bytes": 0 if tier is None else tier.nbytes,
+            "demotions": cs.demoted_blocks - self._flight_prev["demote"],
+            "promotions": cs.promoted_blocks - self._flight_prev["promote"],
+        }
+        rec.update(fields)
+        if not rec.get("trace_ids"):
+            rec.pop("trace_ids", None)  # untraced steps stay compact
+        if self._last_sync is not None:
+            rec.update(self._last_sync)
+            self._last_sync = None
+        self._flight_prev["cow"] = cs.cow_copies
+        self._flight_prev["evict"] = cs.prefix_evicted_blocks
+        self._flight_prev["demote"] = cs.demoted_blocks
+        self._flight_prev["promote"] = cs.promoted_blocks
+        self._flight.record(rec)
+
+    def _on_new_signature(self, sig: tuple) -> None:
+        """``DecodeFns`` hook: a (kind, tokens shape, tables shape) this
+        engine has not run before, a compile event; counted by shape key
+        and marked in the ring."""
+        key = obs.shape_key(sig)
+        self._m_compile.inc(tags={"shape": key})
+        self._flight.record({"kind": "compile", "ts": obs.wall(),
+                             "shape": key})
+
+    def _dump(self, reason: str, *, path: str | None = None,
+              lock_free: bool = False) -> str | None:
+        """Write the flight recorder to disk. ``lock_free`` (the watchdog,
+        whose wedged stepper may hold the lock) writes the ring, the last
+        autoscaling snapshot (a plain attribute) and the event stats only:
+        no ``stats()``, no cache walk, nothing of the device."""
+        extra: dict = {}
+        if not lock_free:
+            extra["stats"] = self.stats()
+            extra["cache"] = self.cache.debug_snapshot()
+        if self._last_snapshot is not None:
+            extra["autoscaling_snapshot"] = self._last_snapshot
+        out = obs.write_dump(self._flight.dump(reason, extra=extra),
+                             dir=self.cfg.flight_recorder_dir, path=path)
+        if out is not None:
+            logger.warning("llm engine flight recorder (%s) dumped to %s",
+                           reason, out)
+        return out
+
+    # ---------------- failure handling ----------------
+
+    def _fail_engine(self, e: BaseException) -> None:
+        """A step raised: fail closed. One ``engine_died`` dump, then every
+        live stream gets an ``EngineDiedError`` and the pool is reset."""
+        if isinstance(e, EngineDiedError):
+            err = e
+        else:
+            err = EngineDiedError(f"engine step failed: {e!r}")
+            err.__cause__ = e
+        with self._lock:
+            self._failed = err
+            if not self._dumped:
+                self._dumped = True
+                self._dump("engine_died")
+            self._fan_out_locked(err, "failed")
+
+    def _fan_out_locked(self, err: BaseException, reason: str) -> None:
+        """Fail every live stream with ``err`` (terminal event ``reason``)
+        and return all blocks."""
         for r in (*self._waiting, *self._prefilling, *self._running,
                   *self._preempted):
             if not r.done:
                 r.done = True
+                self._finish_obs_locked(r, reason)
                 r.out.put(err)
                 r.out.put(_DONE)
         self._waiting.clear()
@@ -1495,6 +2302,7 @@ class LLMEngine:
         self._prefilling = []
         self._running = []
         self._preempted = []
+        self._m_preempted_streams.set(0)
         self._pending = None  # the in-flight step dies with the engine
         self.cache.release_all()
 
@@ -1509,20 +2317,31 @@ class LLMEngine:
                     target=self._loop, name="llm-engine-step", daemon=True
                 )
                 self._thread.start()
+            if self._watchdog is None and self.cfg.step_timeout_s:
+                self._watchdog = threading.Thread(
+                    target=self._watchdog_loop, name="llm-engine-watchdog",
+                    daemon=True,
+                )
+                self._watchdog.start()
 
     def _loop(self) -> None:
         while True:
             with self._lock:
                 if self._stopped:
                     return
+            if self._failed is not None:
+                return
             try:
                 progressed = self.step()
             except Exception as e:  # noqa: BLE001 — fail closed, fan out
-                err = EngineDiedError(f"engine step failed: {e!r}")
-                err.__cause__ = e
+                self._fail_engine(e)
+                return
+            if self._failed is not None:
+                # the watchdog failed every stream while this step was
+                # wedged; the step stopped before dispatching, and the
+                # pool goes back here, under the lock
                 with self._lock:
-                    self._failed = err
-                    self._fan_out_locked(err)
+                    self._fan_out_locked(self._failed, "failed")
                 return
             if not progressed:
                 with self._work:
@@ -1532,3 +2351,31 @@ class LLMEngine:
                             or self._prefilling or self._running
                             or self._preempted):
                         self._work.wait(timeout=0.05)
+
+    def _watchdog_loop(self) -> None:
+        """Detect a wedged step, LOCK-FREE: the stepper may be stuck in a
+        device sync while holding the scheduler lock. Reads
+        ``_step_begin`` as a plain attribute, fails every stream through
+        its (thread-safe) queue and writes a ``watchdog_timeout`` dump of
+        the ring alone. Touches no tensor and no CUDA call."""
+        timeout = self.cfg.step_timeout_s
+        poll = max(0.005, min(0.05, timeout / 10.0))
+        while not self._stopped and self._failed is None:
+            begin = self._step_begin
+            if begin is not None and obs.clock() - begin > timeout:
+                err = EngineDiedError(
+                    f"engine step wedged for > {timeout}s; "
+                    "failing all in-flight streams"
+                )
+                self._failed = err
+                if not self._dumped:
+                    self._dumped = True
+                    self._dump("watchdog_timeout", lock_free=True)
+                for r in (list(self._waiting) + self._prefilling
+                          + self._running + self._preempted):
+                    if not r.done:
+                        r.done = True
+                        r.out.put(err)
+                        r.out.put(_DONE)
+                return
+            time.sleep(poll)

@@ -61,7 +61,11 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.ops import kv_cache as kv_ops
-from ray_tpu_torch.ops.quantization import QuantizedKV, quantize_params
+from ray_tpu_torch.ops.quantization import (
+    QuantizedKV,
+    QuantizedTensor,
+    quantize_params,
+)
 from ray_tpu_torch.ops.sampling import greedy_rows, keyed_uniform
 from ray_tpu_torch.serve.llm.decode import (
     DecodeFns,
@@ -132,6 +136,11 @@ class SingleDeviceExecutor:
     dict (``convert.gpt_params_from_numpy`` / ``llama_params_from_numpy``);
     None draws seeded random weights on the device."""
 
+    kind = "single"
+    # set by the engine when speculation is on ({"speculative_k",
+    # "drafter"}); reported by describe()
+    speculative: dict | None = None
+
     def __init__(self, model_cfg, cache, *, params: dict | None = None,
                  seed: int = 0):
         self.family = family_of(model_cfg)
@@ -163,6 +172,61 @@ class SingleDeviceExecutor:
         # a landing's staging buffer (by address) -> the event recorded
         # behind the copy that reads it
         self._landed: dict[int, torch.cuda.Event] = {}
+
+    # ---------------- description ----------------
+
+    @property
+    def on_new_signature(self):
+        """The engine's compile-event hook, forwarded to ``DecodeFns``."""
+        return self.fns.on_new_signature
+
+    @on_new_signature.setter
+    def on_new_signature(self, hook) -> None:
+        self.fns.on_new_signature = hook
+
+    @property
+    def num_devices(self) -> int:
+        return 1
+
+    @property
+    def num_params(self) -> int:
+        """Elements of the served weights (a quantized weight counts its
+        data, not its scales), from shapes alone: serving MFU's 2 *
+        n_params FLOPs a token."""
+        if getattr(self, "_num_params", None) is None:
+            self._num_params = sum(
+                w.data.numel() if isinstance(w, QuantizedTensor)
+                else w.numel() for w in self.model.weights().values())
+        return self._num_params
+
+    @property
+    def peak_tflops(self) -> float:
+        """The MFU denominator: the card's dense bf16 peak
+        (``benchmarks/gpt_mfu.card_peak_tflops``; 0.0 for a card the table
+        does not know, which reports MFU 0), off the card the reference's
+        nominal 0.5 TFLOP/s, so the ratio stays defined."""
+        if getattr(self, "_peak_tflops", None) is None:
+            from ray_tpu_torch.benchmarks.gpt_mfu import card_peak_tflops
+
+            if self._on_card:
+                self._peak_tflops = card_peak_tflops(self.device) or 0.0
+            else:
+                self._peak_tflops = 0.5
+        return self._peak_tflops
+
+    def describe(self) -> dict:
+        """Which executor serves, on which device and attention backend,
+        quantized how, speculating how, and its step graphs by kind (host
+        state only: safe to call while a step is in flight)."""
+        return {
+            "executor": self.kind, "devices": self.num_devices, "mesh": None,
+            "device": (torch.cuda.get_device_name(self.device)
+                       if self._on_card else str(self.device)),
+            "attention_backend": self.model_cfg.attention_backend,
+            "quantization": self.quantization,
+            "speculative": self.speculative,
+            "graphs": self.fns.graphs_by_kind(),
+        }
 
     # ---------------- staging ----------------
 

@@ -72,13 +72,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.ops.kv_cache import pool_head_dim
 from ray_tpu_torch.ops.quantization import (
     QuantizedKV,
     quant_dtype,
     resolve_quantization,
 )
-from ray_tpu_torch.serve.llm import kv_transfer
+from ray_tpu_torch.serve.llm import kv_transfer, obs
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger("ray_tpu_torch.serve.llm")
 
@@ -613,6 +615,7 @@ class PagedKVCache:
         if self.demote_fn is None:
             return
         try:
+            chaos.fire("llm.kv.demote", block=block)
             k, v = self.demote_fn([block])
             stored, evicted = tier.put(digest, k[:, 0], v[:, 0])
             if stored:
@@ -628,11 +631,27 @@ class PagedKVCache:
             logger.warning("host-tier demotion of block %d failed: %r",
                            block, exc)
 
-    def demote_chain(self, tokens, upto_tokens: int) -> int:
+    def demote_chain(self, tokens, upto_tokens: int,
+                     trace_ctx: dict | None = None) -> int:
         """Back the leading full blocks of ``tokens`` (within its first
         ``upto_tokens``) into the host tier with ONE ``demote_fn`` export
         of every block not already there (the reference's preemption
-        pause path). Best-effort like every demote. -> blocks captured."""
+        pause path). Best-effort like every demote. -> blocks captured.
+        With ``trace_ctx`` (the parked request's) the demote is a
+        ``kv.demote`` span on its trace."""
+        t0 = obs.wall() if trace_ctx else 0.0
+        captured = self._demote_chain(tokens, upto_tokens)
+        if trace_ctx:
+            tracing.record_span(
+                "kv.demote", trace_id=trace_ctx["trace_id"],
+                parent_span_id=trace_ctx.get("parent_span_id"),
+                start=t0, end=obs.wall(), kind="kv",
+                attrs={"blocks": captured,
+                       "upto_tokens": min(upto_tokens, len(tokens))},
+            )
+        return captured
+
+    def _demote_chain(self, tokens, upto_tokens: int) -> int:
         tier = self.host_tier
         if tier is None or self.demote_fn is None:
             return 0
@@ -650,6 +669,7 @@ class PagedKVCache:
             return 0
         captured = 0
         try:
+            chaos.fire("llm.kv.demote", blocks=len(todo))
             k, v = self.demote_fn([b for _, b in todo])
             for i, (d, b) in enumerate(todo):
                 stored, evicted = tier.put(d, k[:, i], v[:, i])
@@ -701,6 +721,26 @@ class PagedKVCache:
         """Ack that the payloads of ``block_ids`` are on the device: they
         become ordinary resident prefix blocks, exportable again."""
         self._unlanded.difference_update(block_ids)
+
+    def prefix_digest_summary(self, limit: int = 32) -> list[str]:
+        """At most ``limit`` hex chain digests of the prefix blocks this
+        cache serves without recompute: device-resident entries newest
+        registered first, then host-tier entries most recently used first
+        (the routing keys the autoscaling snapshot carries)."""
+        out: list[str] = []
+        seen: set[bytes] = set()
+        for digest in reversed(self._hash_to_block):
+            if len(out) >= limit:
+                return out
+            out.append(digest.hex())
+            seen.add(digest)
+        if self.host_tier is not None:
+            for digest in self.host_tier.digests():
+                if len(out) >= limit:
+                    break
+                if digest not in seen:
+                    out.append(digest.hex())
+        return out
 
     # ---------------- views ----------------
 

@@ -27,9 +27,10 @@ Design constraints:
   accepting states with no outgoing byte edge are ``must_stop`` and
   the engine completes the stream there exactly like EOS.
 
-The reference module also exports a compile-time histogram and a
-cache hit-rate gauge; this copy keeps the cache's counts in
-``cache_stats()`` alone (metrics come with the port's observability).
+Metrics, by the reference's names: ``llm_grammar_compile_seconds`` (the
+compile time of a cache miss, on ``obs.clock``) and
+``llm_grammar_cache_hit_rate`` (the LRU's lifetime hit rate), in the
+port's registry (``util/metrics.py``); ``cache_stats()`` gives the counts.
 """
 from __future__ import annotations
 
@@ -41,6 +42,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ray_tpu_torch.serve.llm import obs
+from ray_tpu_torch.util import metrics
+
 logger = logging.getLogger("ray_tpu_torch.serve.llm")
 
 # Compile-time caps: DFA state blowup and {m,n} repetition expansion
@@ -49,6 +53,27 @@ _DFA_STATE_CAP = 4096
 _NFA_STATE_CAP = 200_000
 _REP_CAP = 512
 _JSON_DEPTH = 3
+
+GRAMMAR_COMPILE_BUCKETS = (
+    0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0,
+)
+
+
+def compile_seconds_histogram() -> metrics.Histogram:
+    return metrics.histogram(
+        "llm_grammar_compile_seconds",
+        "Wall time to compile one grammar spec into a token DFA "
+        "(cache misses only; hits are O(1))",
+        boundaries=GRAMMAR_COMPILE_BUCKETS,
+    )
+
+
+def cache_hit_gauge() -> metrics.Gauge:
+    return metrics.gauge(
+        "llm_grammar_cache_hit_rate",
+        "Lifetime hit rate of the process-wide (grammar, vocab, eos) "
+        "-> token-DFA LRU cache",
+    )
 
 
 class GrammarError(ValueError):
@@ -947,7 +972,11 @@ def compile_grammar(
         if dfa is not None:
             _cache.move_to_end(key)
             _cache_stats["hits"] += 1
+            cache_hit_gauge().set(
+                _cache_stats["hits"] / _cache_stats["lookups"]
+            )
             return dfa
+    t0 = obs.clock()
     try:
         dfa = _compile(spec, vocab_size, eos_id)
     except GrammarError:
@@ -956,10 +985,14 @@ def compile_grammar(
         # degradation path is loud by contract: a compile failure is
         # re-raised as the client-visible GrammarError, never swallowed
         raise GrammarError(f"grammar compile failed: {e!r}") from e
+    compile_seconds_histogram().observe(obs.clock() - t0)
     with _cache_lock:
         _cache[key] = dfa
         while len(_cache) > _CACHE_CAP:
             _cache.popitem(last=False)
+        cache_hit_gauge().set(
+            _cache_stats["hits"] / max(1, _cache_stats["lookups"])
+        )
     logger.info(
         "compiled grammar kind=%s states=%d vocab=%d",
         spec.kind, dfa.n_states, int(vocab_size),

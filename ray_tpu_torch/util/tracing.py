@@ -1,0 +1,142 @@
+"""Tracing spans, process-local (the port's copy of
+``ray_tpu/util/tracing.py``).
+
+A span is a named, timed block; spans nest through a context variable, and
+a stored trace context (``current_context()``) re-enters on another thread
+(``attach_context``) or parents spans recorded after the fact
+(``record_span``: the engine turns a finished request's timeline into
+spans this way). Every span lands in a bounded ring of this process
+(``drain_buffered_spans``), and ``spans_to_chrome`` renders spans as
+chrome://tracing events.
+
+The reference also exports each span into the worker's task events and
+reads whole traces back from the GCS (``task_span``, ``get_trace``,
+``trace_to_chrome``), and its Serve path opens ``span_if_active``; those
+come with the Serve deployment and the distributed core.
+
+    from ray_tpu_torch.util import tracing
+
+    with tracing.span("ingest", source="s3"):
+        ...
+    events = tracing.spans_to_chrome(tracing.drain_buffered_spans())
+"""
+from __future__ import annotations
+
+import contextvars
+import os
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Any, Optional
+
+# (trace_id_hex, span_id_hex) of the innermost active span
+_current: contextvars.ContextVar[Optional[tuple[str, str]]] = (
+    contextvars.ContextVar("ray_tpu_torch_span", default=None)
+)
+
+# every recorded span, newest last; the oldest drop first
+_BUFFER_MAX = 2048
+_buffer_lock = threading.Lock()
+_buffer: deque = deque(maxlen=_BUFFER_MAX)
+
+
+def drain_buffered_spans() -> list[dict]:
+    """Take (and clear) this process's buffered spans, each a flat dict:
+    {name, kind, trace_id, span_id, parent_span_id, start, end, attrs}."""
+    with _buffer_lock:
+        out = list(_buffer)
+        _buffer.clear()
+    return out
+
+
+def current_context() -> Optional[dict]:
+    """The active span's context ({trace_id, parent_span_id}), or None
+    when no span is active (untraced work pays nothing)."""
+    cur = _current.get()
+    if cur is None:
+        return None
+    return {"trace_id": cur[0], "parent_span_id": cur[1]}
+
+
+@contextmanager
+def attach_context(ctx: dict | None):
+    """Re-enter a stored trace context on a thread that did not inherit
+    it: spans opened inside parent under ``ctx['parent_span_id']``. A
+    no-op for None."""
+    if not ctx:
+        yield
+        return
+    token = _current.set((ctx["trace_id"], ctx["parent_span_id"]))
+    try:
+        yield
+    finally:
+        _current.reset(token)
+
+
+def _record(name: str, trace_id: str, span_id: str,
+            parent_span_id: str | None, start: float, end: float,
+            attrs: dict | None, kind: str) -> None:
+    with _buffer_lock:
+        _buffer.append({
+            "name": name, "kind": kind, "trace_id": trace_id,
+            "span_id": span_id, "parent_span_id": parent_span_id,
+            "start": start, "end": end, "attrs": attrs or {},
+        })
+
+
+def record_span(
+    name: str,
+    *,
+    trace_id: str,
+    parent_span_id: str | None = None,
+    start: float,
+    end: float,
+    attrs: dict | None = None,
+    kind: str = "span",
+) -> str:
+    """Record a finished span from an explicitly carried context and its
+    measured wall times; -> the new span id (children recorded in the
+    same batch parent under it)."""
+    span_id = os.urandom(8).hex()
+    _record(name, trace_id, span_id, parent_span_id, start, end, attrs, kind)
+    return span_id
+
+
+@contextmanager
+def span(name: str, **attrs: Any):
+    """Open a span under the active one (or a new trace); records on
+    exit."""
+    parent = _current.get()
+    trace_id = parent[0] if parent else os.urandom(8).hex()
+    span_id = os.urandom(8).hex()
+    token = _current.set((trace_id, span_id))
+    start = time.time()
+    try:
+        yield {"trace_id": trace_id, "span_id": span_id}
+    finally:
+        _current.reset(token)
+        _record(name, trace_id, span_id, parent[1] if parent else None,
+                start, time.time(), attrs, kind="span")
+
+
+def spans_to_chrome(spans: list[dict]) -> list[dict]:
+    """Span dicts (the buffered shape) as chrome://tracing events."""
+    events = []
+    for e in sorted(spans, key=lambda e: e["start"]):
+        events.append({
+            "name": e["name"],
+            "cat": (e.get("type") or e.get("task_type")
+                    or e.get("kind") or "span"),
+            "ph": "X",
+            "ts": e["start"] * 1e6,
+            "dur": (e["end"] - e["start"]) * 1e6,
+            "pid": e.get("node_id", e.get("source", ""))[:8],
+            "tid": e.get("worker_id", "")[:8],
+            "args": {
+                "span_id": e["span_id"],
+                "parent_span_id": e.get("parent_span_id"),
+                **(e.get("attrs") or {}),
+            },
+        })
+    return events

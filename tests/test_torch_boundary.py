@@ -1,6 +1,8 @@
 """The port's boundaries: ``ray_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of ``ray_tpu``; entry points never fall back to
-the CPU on their own; a kernel wrapper refuses a CPU tensor."""
+neither JAX nor anything of ``ray_tpu``, nor ``prometheus_client`` (the
+card's machine does not have it); entry points never fall back to the CPU
+on their own; a kernel wrapper refuses a CPU tensor; the serving path
+reads one clock."""
 from __future__ import annotations
 
 import ast
@@ -12,7 +14,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "prometheus_client")
 
 
 def _port_files():
@@ -55,12 +57,43 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch.ops.quantization\n"
         "import ray_tpu_torch.ops.attention, ray_tpu_torch.ops.loss\n"
         "import ray_tpu_torch.benchmarks.gpt_mfu\n"
+        "import ray_tpu_torch.util.metrics, ray_tpu_torch.util.tracing\n"
+        "import ray_tpu_torch._private.chaos\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_one_clock_in_the_serving_path():
+    """Every duration and timestamp of ``ray_tpu_torch/serve/llm`` reads
+    ``obs.clock`` / ``obs.wall``: a raw ``time.time()``,
+    ``time.perf_counter()`` or ``time.monotonic()`` anywhere else there
+    would give step records, histograms, deadlines and preemption ages
+    that disagree about what was measured (``time.sleep`` stays
+    allowed)."""
+    root = os.path.join(ROOT, "ray_tpu_torch", "serve", "llm")
+    targets = sorted(f for f in os.listdir(root) if f.endswith(".py"))
+    assert "engine.py" in targets and "obs.py" in targets
+    forbidden = {"time", "perf_counter", "monotonic"}
+    offenders = []
+    for name in targets:
+        if name == "obs.py":
+            continue  # the clock module
+        path = os.path.join(root, name)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            fn = node.func
+            if (isinstance(fn, ast.Attribute) and fn.attr in forbidden
+                    and isinstance(fn.value, ast.Name)
+                    and fn.value.id == "time"):
+                offenders.append(f"{name}:{node.lineno}")
+    assert not offenders, f"raw clock reads outside obs.py: {offenders}"
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

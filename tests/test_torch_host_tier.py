@@ -293,7 +293,8 @@ def test_demote_promote_exactly_once_matches_jax(models, family):  # noqa: F811
     assert st["kv_demoted_blocks"] >= PREFIX_BLOCKS
     assert st["kv_promoted_blocks"] == PREFIX_BLOCKS
     assert st["prefix_hit_tokens"] == 2 * PREFIX_TOKENS
-    demotes = [r for r in pe.debug_dump()["steps"] if r["kind"] == "demote"]
+    demotes = [r for r in pe.debug_dump()["export_syncs"]
+               if r["kind"] == "demote"]
     record = pe.cache.layout.record_payload_bytes
     assert demotes and all(r["sync_bytes"] == r["batch"] * record
                            for r in demotes)

@@ -1107,7 +1107,7 @@ def test_engine_decode_steps_make_no_host_sync(cuda, prefix_caching):
     assert st["prefix_hit_blocks"] == hits and st["cow_blocks"] == 0
     assert eng.fns.graphs_captured == graphs  # nothing captured again
     assert eng.fns.replays - replays == eng.num_decode_steps - steps > 0
-    assert any(r["sync_lag"] == 1 for r in eng.debug_dump()["steps"])
+    assert any(r.get("sync_lag") == 1 for r in eng.debug_dump()["steps"])
     c = eng.cache
     assert c.used_blocks == 0 and c.reserved_blocks == 0
     assert c.available_blocks == c.cfg.usable_blocks

@@ -75,7 +75,7 @@ def test_pipelined_engine_matches_solo_runs():
     assert [list(s) for s in streams] == solo
 
     lags = [r["sync_lag"] for r in eng.debug_dump()["steps"]
-            if r["kind"] == "decode"]
+            if r["kind"] == "decode" and "sync_lag" in r]
     assert 1 in lags, f"pipeline never reached steady state: {lags}"
     stats = eng.stats()
     assert stats["decode_inflight"] == 0  # fully drained
@@ -166,7 +166,8 @@ def test_host_sync_moves_o_batch_int32():
     eng = _engine()
     streams = [eng.submit([i + 1] * 5, max_new_tokens=8) for i in range(3)]
     _drain(eng, streams)
-    recs = eng.debug_dump()["steps"]
+    # the steps that paid for a sync carry its bytes
+    recs = [r for r in eng.debug_dump()["steps"] if "sync_bytes" in r]
     assert recs
     buckets = set(eng._batch_buckets)
     for r in recs:
@@ -246,5 +247,5 @@ def test_pipelined_streams_match_jax_engine(weights, kind):
         eng.step()
     _drain(eng, streams)
     assert [list(s) for s in streams] == want
-    assert 1 in [r["sync_lag"] for r in eng.debug_dump()["steps"]]
+    assert 1 in [r.get("sync_lag") for r in eng.debug_dump()["steps"]]
     _assert_pool_whole(eng)

@@ -48,9 +48,10 @@ def _cpu(jax_cpu):
 
 
 class _Clock:
-    """A stand-in for the port engine's ``time`` module: ``monotonic()``
-    reads ``now``, which the test moves (deadlines and aging without
-    sleeping, and without depending on the machine's speed)."""
+    """A stand-in for the port engine's clock (``obs.clock``, which every
+    deadline and preemption age reads): ``monotonic()`` reads ``now``,
+    which the test moves (deadlines and aging without sleeping, and
+    without depending on the machine's speed)."""
 
     def __init__(self):
         self.now = 0.0
@@ -61,10 +62,10 @@ class _Clock:
 
 @pytest.fixture
 def clock(monkeypatch):
-    from ray_tpu_torch.serve.llm import engine
+    from ray_tpu_torch.serve.llm import obs
 
     fake = _Clock()
-    monkeypatch.setattr(engine, "time", fake)
+    monkeypatch.setattr(obs, "clock", fake.monotonic)
     return fake
 
 
