@@ -125,14 +125,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the paths, each counted alone, ``launches_by_path``: the two
    families' engine and training paths, the prefix path, the
    speculative path ``llama_spec``, the preemption path
-   ``llama_preempt`` and the observability path ``llama_obs``; a paged
+   ``llama_preempt``, the observability path ``llama_obs`` and the MoE
+   path ``llama_moe``; a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-14. for each family, on its training phase's first weights and batch
-   ([16, 1025]), holds the loss and every gradient through the CUDA
-   kernels against the plain backend's (LOSS_TOL, GRAD_REL_TOL); then
-   ``{"ok": true, "device": ...}`` last.
+14. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
+   training phase's first weights and batch ([16, 1025]), holds the loss
+   through the CUDA kernels against the plain backend's (LOSS_TOL) and
+   every gradient against the model in f32, no further from it than the
+   plain bf16 path's up to the margin derived from control runs
+   (``grad_agreement.gate``; the CUDA-vs-plain reading printed beside);
+   then ``{"ok": true, "device": ...}`` last.
 
 Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
@@ -178,9 +182,8 @@ BYTES_RATIO_MAX = 0.55
 # training, CUDA kernels vs plain backend on the bf16 model: the two
 # attentions differ by bf16 ulps (2^-8 relative rounding) at B1's online
 # softmax; through 12 layers forward and back those perturbations stay a
-# few rounding units of each gradient's norm, and of the loss
+# few rounding units of the loss (the gradients: grad_agreement.gate)
 LOSS_TOL = 1e-2        # absolute, on a loss of about 10.8
-GRAD_REL_TOL = 2e-2    # ||g_cuda - g_plain|| / ||g_plain||, each parameter
 
 DECODE = dict(B=8, H=12, hd=64, bs=16, num_blocks=1024, max_len=1024)
 LONG_DECODE = dict(B=1, H=12, hd=64, bs=16, length=4096)  # one long sequence
@@ -715,28 +718,37 @@ def flash_bwd_registers() -> None:
 # d_mlp 2048, vocab 32000, seq 1024; 12 layers of d_model 768), a
 # ``dataclasses.replace`` of ``LlamaConfig``
 FAMILIES = ("gpt", "llama")
-NAMES = {"gpt": "GPT-2 125M", "llama": "Llama-125M"}
+MOE = "llama_moe"  # Llama-125M-MoE (families.MODELS)
+NAMES = {"gpt": "GPT-2 125M", "llama": "Llama-125M",
+         MOE: "Llama-125M-MoE"}
+# a route of the CUDA path may differ from the plain path's only at a
+# near-tie: the plain run's gap between the two competing router
+# probabilities (renormalised over its top k) below this, or as a cascade
+# of such a flip (``route_flips``)
+ROUTE_TIE = 0.02
 
 
 def train_phase(torch, model="gpt", card="") -> dict:
-    """Train steps of a family at full width (``Family.full``) through
-    the port's entry point; checks the losses and that each flash kernel
-    ran once per layer and step."""
+    """Train steps of a model at full width (``families.MODELS``: a
+    family's ``full()``, or Llama-125M-MoE) through the port's entry
+    point; checks the losses and that each flash kernel ran once per
+    layer and step."""
     import math
 
     from ray_tpu_torch.benchmarks.gpt_mfu import run_gpt_bench
-    from ray_tpu_torch.models.families import family
+    from ray_tpu_torch.models.families import full_config
     from ray_tpu_torch.ops import attention as at
 
-    cfg = family(model).full()
+    fam, cfg = full_config(model)
     n_layer = cfg.n_layer
     at.reset_launches()
-    out = run_gpt_bench(model=model, config=cfg, **TRAIN)
+    out = run_gpt_bench(model=fam, config=cfg, **TRAIN)
     launches = dict(at.LAUNCHES)
     want = {name: n_layer * (TRAIN["warmup"] + TRAIN["steps"])
             for name in launches}
     losses = out["losses"]
-    log(f"train: {NAMES[model]} {out['n_params']} params, batch "
+    log(f"train: {NAMES[model]} {out['n_params']} params "
+        f"({out['n_active_params']} active a token), batch "
         f"{out['batch_size']} x {out['seq_len']}, {out['steps']} timed "
         f"steps: step {out['step_ms']:.2f} ms, {out['tokens_per_s']:.1f} "
         f"tokens/s, MFU {out['mfu']} (peak {out['peak_tflops']} TFLOP/s) on "
@@ -772,46 +784,77 @@ def loss_phase(torch, timer) -> float:
 
 def train_backends_phase(torch, model="gpt") -> dict:
     """Loss and every gradient of one step through the CUDA kernels against
-    the plain backend, on the training phase's first step: its weights
-    (seed 0) and its batch (``TRAIN``'s size, tokens from seed 1)."""
+    the plain backend and against the plain backend at f32, on the
+    training phase's first step: its weights (seed 0) and its batch
+    (``TRAIN``'s size, tokens from seed 1). The gate
+    (``grad_agreement.gate``, derived from the control runs): for every
+    parameter the CUDA path's gradient no further from f32 than the plain
+    bf16 path's, up to ``GATE_RATIO`` x + ``GATE_ABS`` x the median of
+    the plain path's distances; the CUDA-vs-plain reading is printed
+    beside it. For an MoE model the routes of the two
+    bf16 forwards are compared first (``route_flips``), and the share of
+    (token, choice) pairs dropped is printed."""
+    from ray_tpu_torch.benchmarks import grad_agreement as ga
     from ray_tpu_torch.benchmarks.gpt_mfu import bench_batch
-    from ray_tpu_torch.models.families import family
+    from ray_tpu_torch.models.families import family, full_config
 
-    fam = family(model)
-    cfg = dataclasses.replace(fam.full(), attention_backend="cuda")
-    models = {"cuda": fam.init(cfg, seed=0, device="cuda", train=True)}
-    models["torch"] = fam.model(
-        dataclasses.replace(cfg, attention_backend="torch"), "cuda",
-        train=True)
-    models["torch"].load_state_dict(models["cuda"].state_dict())
-    batch = bench_batch(cfg, TRAIN["batch_size"], TRAIN["seq_len"], 1,
+    fam, base = full_config(model)
+    configs = ga.backend_configs(base)
+    batch = bench_batch(base, TRAIN["batch_size"], TRAIN["seq_len"], 1,
                         "cuda")
-    loss, grads = {}, {}
-    for name, m in models.items():
+    loss, grads, routes = {}, {}, {}
+    for name, cfg in configs.items():
+        m = family(fam).init(cfg, seed=0, device="cuda", train=True)
+        moe = getattr(m, "moe", None) is not None and name != "f32"
+        if moe:
+            m.route_log = []
         value = m.loss(batch)
         value.backward()
         loss[name] = value.item()
-        grads[name] = {n: p.grad for n, p in m.named_parameters()}
+        grads[name] = {n: p.grad.float() for n, p in m.named_parameters()}
+        if moe:
+            routes[name] = m.route_log
+        del m, value
+        torch.cuda.empty_cache()
     dloss = abs(loss["cuda"] - loss["torch"])
-    rel = {}
-    for n, want in grads["torch"].items():
-        diff = (grads["cuda"][n] - want).float().norm()
-        rel[n] = (diff / want.float().norm().clamp(min=1e-30)).item()
-    worst = max(rel, key=rel.get)
-    log(f"train [{model}] cuda vs torch backend: loss {loss['cuda']:.6f} vs "
-        f"{loss['torch']:.6f} (|diff| {dloss:.3e}, tol {LOSS_TOL}); worst "
-        f"gradient rel L2 {rel[worst]:.3e} ({worst}; tol {GRAD_REL_TOL}; "
-        f"median {statistics.median(rel.values()):.3e})")
+    cuda_f32 = ga.rel_l2(grads["cuda"], grads["f32"])
+    plain_f32 = ga.rel_l2(grads["torch"], grads["f32"])
+    cuda_plain = ga.rel_l2(grads["cuda"], grads["torch"])
+    gate = ga.gate(cuda_f32, plain_f32)
+    worst = max(cuda_plain, key=cuda_plain.get)
+    tag = f"train [{model}]"
+    if routes:
+        S = TRAIN["seq_len"]
+        flips = route_flips(routes["cuda"], routes["torch"], S)
+        log_flips(tag, flips)
+        dropped = [1 - r.keep.float().mean().item() for r in routes["cuda"]]
+        log(f"{tag}: (token, choice) pairs dropped at step 0 (capacity "
+            f"{routes['cuda'][0].capacity} a expert): "
+            f"{statistics.mean(dropped):.4f} of all, by layer "
+            f"{[round(d, 4) for d in dropped]}")
+    log(f"{tag} cuda vs torch backend: loss {loss['cuda']:.6f} vs "
+        f"{loss['torch']:.6f} (f32 {loss['f32']:.6f}; |diff| {dloss:.3e}, "
+        f"tol {LOSS_TOL}); gate: worst {gate['param']} cuda_f32 "
+        f"{gate['cuda_f32']:.3e} <= {ga.GATE_RATIO} x plain_f32 "
+        f"{gate['plain_f32']:.3e} + {gate['absolute']:.3e} ({ga.GATE_ABS} x "
+        f"the median) = {gate['bar']:.3e} "
+        f"(slack {gate['slack']:.3f}; max ratio {gate['max_ratio']:.4f} at "
+        f"{gate['max_ratio_param']}); beside it cuda vs plain worst "
+        f"{cuda_plain[worst]:.3e} ({worst}; median "
+        f"{statistics.median(cuda_plain.values()):.3e})")
     if not dloss <= LOSS_TOL:
         raise AssertionError(f"losses disagree: {loss}")
-    if not rel[worst] <= GRAD_REL_TOL:
-        raise AssertionError(f"gradient {worst} disagrees: {rel[worst]}")
-    return {"loss_diff": dloss, "grad_rel": rel[worst]}
+    if not gate["ok"]:
+        raise AssertionError(f"{tag}: gradient {gate['param']} further from "
+                             f"f32 than the plain path's: {gate}")
+    return {"loss_diff": dloss, "gate": gate,
+            "cuda_plain": cuda_plain[worst]}
 
 
 def profile_train(torch, model="gpt") -> None:
-    """Two warm train steps of a family at full width under
-    torch.profiler: device time by kernel and the device's idle share."""
+    """Two warm train steps of a model at full width (``families.MODELS``)
+    under torch.profiler: device time by kernel and the device's idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.benchmarks.engine_profile import device_rows
@@ -820,11 +863,10 @@ def profile_train(torch, model="gpt") -> None:
         make_optimizer,
         train_step,
     )
-    from ray_tpu_torch.models.families import family
+    from ray_tpu_torch.models.families import family, full_config
 
-    fam = family(model)
-    cfg = fam.full()
-    net = fam.init(cfg, seed=0, device="cuda", train=True)
+    fam, cfg = full_config(model)
+    net = family(fam).init(cfg, seed=0, device="cuda", train=True)
     opt = make_optimizer(net)
     batch = bench_batch(cfg, TRAIN["batch_size"], TRAIN["seq_len"], 1, "cuda")
     for _ in range(2):
@@ -916,18 +958,35 @@ def decode_sweep(torch) -> None:
 
 # ---------------------------------------------------------------- engine
 
-def weight_bytes(model) -> int:
-    """Device bytes of a model's weights (quantized: data and scales)."""
+def weight_bytes(model, names=None) -> int:
+    """Device bytes of a model's weights (quantized: data and scales), of
+    those in ``names`` if given."""
     from ray_tpu_torch.ops.quantization import QuantizedTensor
 
     return sum(w.nbytes() if isinstance(w, QuantizedTensor)
                else w.numel() * w.element_size()
-               for w in model.weights().values())
+               for n, w in model.weights().items()
+               if names is None or n in names)
+
+
+def moe_weight_bytes(model) -> dict:
+    """An MoE model's weight bytes by kind: ``experts`` (never quantized),
+    ``quantizable`` (the leaves a quantized engine quantizes, its
+    ``llama_quant_axes`` >= 0) and ``rest`` (norm scales and routers)."""
+    from ray_tpu_torch.models.llama import llama_quant_axes
+
+    axes = llama_quant_axes(model.cfg)
+    experts = {n for n in axes if "moe_w_" in n}
+    quantizable = {n for n, a in axes.items() if a >= 0}
+    return {"experts": weight_bytes(model, experts),
+            "quantizable": weight_bytes(model, quantizable),
+            "rest": weight_bytes(model, set(axes) - experts - quantizable)}
 
 
 def engine_phase(torch, quant=None, model="gpt") -> dict:
     """The engine workload (``quant``: None for bf16, or a quantization
-    kind) on the lag-1 pipeline and its decode graphs. A first pass
+    kind; ``model`` a name of ``families.MODELS``) on the lag-1 pipeline
+    and its decode graphs. A first pass
     captures the graphs; a second, timed, must repeat its streams and
     replay a graph at every decode step, its wrappers launching B5 (and
     no B4) eagerly; a third, the counted pass, runs under the profiler
@@ -935,13 +994,14 @@ def engine_phase(torch, quant=None, model="gpt") -> dict:
     path's kernels launched 12 layers x its calls on the device (B4 from
     the graph replays), every other paged kernel never."""
     from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.models.families import full_config
     from ray_tpu_torch.ops import paged_attention as pa
 
     engine = ep.make_engine(quant, model)
     cfg = engine.model_cfg
     assert engine.device.type == "cuda", engine.device
     assert engine.executor.quantization == quant
-    assert engine.executor.family == model
+    assert engine.executor.family == full_config(model)[0]
     tag = f"engine[{model} {quant or 'bf16'}]"
     suffix = f"_{quant}" if quant else ""
     decode, prefill = "paged_decode" + suffix, "paged_prefill" + suffix
@@ -1011,7 +1071,8 @@ def engine_phase(torch, quant=None, model="gpt") -> dict:
     eager = dict(pa.LAUNCHES)
     launches = dict.fromkeys(pa.LAUNCHES, 0)
     launches.update(prof["paged_launches"])
-    log_launch_counts(tag, launches, ring_launches(engine, mark, suffix))
+    ring = ring_launches(engine, mark, suffix)
+    log_launch_counts(tag, launches, ring)
     want = dict.fromkeys(launches, 0)
     want[decode] = cfg.n_layer * decode_steps
     want[prefill] = cfg.n_layer * prefill_calls
@@ -1039,7 +1100,10 @@ def engine_phase(torch, quant=None, model="gpt") -> dict:
     graph_phase(torch, engine)
     return {"engine": engine, "launches": launches, "eager": eager,
             "prompts": prompts, "params": params, "bytes": nbytes,
-            "tokens_per_s": ntok / run["seconds"]}
+            "tokens_per_s": ntok / run["seconds"], "window": window,
+            "decode_ms": 1e3 * statistics.mean(steps["decode"]),
+            "prefill_ms": 1e3 * statistics.mean(steps["prefill"]),
+            "ring": ring, "outs": outs}
 
 
 def graph_phase(torch, engine) -> None:
@@ -1087,20 +1151,48 @@ def graph_phase(torch, engine) -> None:
             f"replay costs the host {statistics.median(launch_us):.1f} us "
             f"(median of 10)")
     model = ex.model
+    moe = getattr(model, "moe", None) is not None
     args = (g.inputs["tokens"], g.inputs["positions"], g.inputs["tables"])
-    want, _, _ = model.decode_step(cache.k, cache.v, *args)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        model.decode_step(cache.k, cache.v, *args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=ex.fns.pool):
-        out, _, _ = model.decode_step(cache.k, cache.v, *args)
+
+    def step():
+        if moe:  # the routes of every layer, as graph outputs under capture
+            model.route_log = []
+        return model.decode_step(cache.k, cache.v, *args)[0]
+
+    want = step()
+    eager_routes = model.route_log if moe else None
+    # an MoE step captures with host syncs raising (no nonzero, no .item(),
+    # no shape from the data)
+    no_sync = (torch.cuda.set_sync_debug_mode if moe
+               else lambda mode: None)
+    no_sync("error")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=ex.fns.pool):
+            out = step()
+    finally:
+        no_sync("default")
     graph.replay()
     torch.cuda.synchronize()
     diff = (out - want).abs().max().item()
-    log(f"{tag}: logits max_abs_diff {diff:.3e} (tol {LOGIT_TOL})")
+    routes = ""
+    if moe:
+        graph_routes, model.route_log = model.route_log, None
+        same = all(torch.equal(getattr(a, f), getattr(b, f))
+                   for a, b in zip(graph_routes, eager_routes)
+                   for f in ("experts", "slots", "keep"))
+        routes = (f"; routes of {len(graph_routes)} layers "
+                  f"{'equal' if same else 'DIFFER'} (captured with sync "
+                  f"debug mode 'error')")
+        if not same or len(graph_routes) != cfg.n_layer:
+            raise AssertionError(f"{tag}: the replay's routes differ from "
+                                 f"the eager step's")
+    log(f"{tag}: logits max_abs_diff {diff:.3e} (tol {LOGIT_TOL}){routes}")
     if not diff <= LOGIT_TOL:
         raise AssertionError(f"{tag}: logits differ by {diff}")
     del graph, out, want
@@ -3014,6 +3106,240 @@ def backends_phase(torch, engine) -> float:
     return diff
 
 
+# -------------------------------------------------------------------- moe
+
+def route_flips(got, want, S, tainted=None) -> dict:
+    """The routes of one MoE call through the CUDA path (``got``, one
+    ``moe_route`` a layer over the call's [B * S] tokens, row-major)
+    against the plain path's (``want``). A token flips at a layer where
+    its set of experts differs (a set flip) or, with the same set, the
+    experts it is kept by (a keep flip: its slots moved). Every flip must
+    be explained:
+
+    - a set flip is a near-tie when the plain run's gap between the two
+      competing probabilities, renormalised over its top k, is below
+      ROUTE_TIE; else it must be a cascade: its row flipped at an earlier
+      layer at a position at or before it (the hidden state it attends to
+      changed), or in an earlier call (``tainted``, rows);
+    - a keep flip must follow a flip of an earlier token at the same
+      layer (the slots are an exclusive cumsum in token order).
+
+    Raises on a flip that is neither; returns the counts, the near-ties'
+    gaps and the rows that flipped (added to ``tainted``)."""
+    tainted = set() if tainted is None else tainted
+    first = {}  # row -> [(layer, position)] of its flips
+    out = {"set": 0, "keep": 0, "near_tie": [], "cascade": 0,
+           "decisions": 0}
+    for layer, (rg, rw) in enumerate(zip(got, want)):
+        eg, ew = rg.experts, rw.experts
+        out["decisions"] += eg.shape[0]
+        set_diff = (eg.sort(-1).values != ew.sort(-1).values).any(-1)
+        kg = rg.experts.masked_fill(~rg.keep, -1).sort(-1).values
+        kw = rw.experts.masked_fill(~rw.keep, -1).sort(-1).values
+        keep_diff = (kg != kw).any(-1) & ~set_diff
+        flipped = (set_diff | keep_diff).nonzero().flatten().tolist()
+        if not flipped:
+            continue
+        sets = set_diff[flipped].tolist()
+        eg_h, ew_h = eg[flipped].tolist(), ew[flipped].tolist()
+        probs = rw.probs[flipped].float().cpu()
+        earlier = None  # first flipped token of this layer
+        for i, t in enumerate(flipped):
+            row, pos = divmod(t, S)
+            cascade = row in tainted or any(
+                l < layer and p <= pos for l, p in first.get(row, ()))
+            if sets[i]:
+                out["set"] += 1
+                e_p = next(e for e in ew_h[i] if e not in eg_h[i])
+                e_c = next(e for e in eg_h[i] if e not in ew_h[i])
+                top = sum(probs[i, e].item() for e in ew_h[i])
+                gap = (probs[i, e_p] - probs[i, e_c]).item() / top
+                if gap < ROUTE_TIE:
+                    out["near_tie"].append((layer, row, pos, gap))
+                elif cascade:
+                    out["cascade"] += 1
+                else:
+                    raise AssertionError(
+                        f"route flip at layer {layer}, row {row}, position "
+                        f"{pos}: plain {ew_h[i]} vs cuda {eg_h[i]}, gap "
+                        f"{gap:.4f} >= ROUTE_TIE {ROUTE_TIE}, no earlier "
+                        f"flip in its row")
+            else:
+                out["keep"] += 1
+                if earlier is None:
+                    raise AssertionError(
+                        f"keep flip at layer {layer}, token {t} with no "
+                        f"earlier flip at that layer")
+                out["cascade"] += 1
+            if earlier is None:
+                earlier = t
+            first.setdefault(row, []).append((layer, pos))
+    out["rows"] = set(first)
+    tainted |= out["rows"]
+    return out
+
+
+def log_flips(tag, flips) -> None:
+    gaps = [g for *_, g in flips["near_tie"]]
+    log(f"{tag}: routes cuda vs plain over {flips['decisions']} (token, "
+        f"layer) decisions: {flips['set']} set flips, {flips['keep']} keep "
+        f"flips; {len(gaps)} near-ties (plain gap < ROUTE_TIE {ROUTE_TIE}; "
+        f"max gap {max(gaps, default=0.0):.3e}), {flips['cascade']} "
+        f"cascades; rows flipped {sorted(flips['rows'])}; near-ties "
+        f"(layer, row, position, gap) "
+        f"{[(l, r, p, round(g, 5)) for l, r, p, g in flips['near_tie'][:12]]}")
+
+
+def moe_backends_phase(torch, engine) -> dict:
+    """Llama-125M-MoE through the CUDA kernels and through the plain
+    backend on the same weights and inputs: one fresh prefill of 32 rows
+    of 4 tokens (no padding row or column: the two backends attend
+    differently on padding columns, by the reference's design), then
+    decode steps fed the plain backend's greedy tokens. The routes are
+    compared first (``route_flips``); on every row whose routes agree at
+    every layer of every call so far, the logits are within LOGIT_TOL.
+    Short rows: about 1.5% of the (token, layer) decisions flip at a
+    near-tie on an H100 (at 8 rows of 32 tokens every row flipped), so a
+    row of 4 tokens agrees at all 12 layers about half the time."""
+    import numpy as np
+
+    from ray_tpu_torch.models.families import kv_heads
+    from ray_tpu_torch.serve.llm.kv_cache import KVCacheConfig, PagedKVCache
+
+    base = engine.executor.model
+    cfg = base.cfg
+    B, S, bs, steps = 32, 4, 16, 4
+    nb = (S + steps + bs - 1) // bs + 1
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                             dtype=torch.int32, device="cuda")
+    lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    tables = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                          device="cuda").reshape(B, nb)
+    logits, routes, fed = {}, {}, []
+    for backend in ("torch", "cuda"):  # the plain backend picks the tokens
+        m = type(base)(dataclasses.replace(cfg, attention_backend=backend),
+                       base.device)
+        m.load_weights(base.weights())
+        cache = PagedKVCache(KVCacheConfig(
+            n_layer=cfg.n_layer, n_kv_head=kv_heads(cfg),
+            head_dim=cfg.head_dim, num_blocks=B * nb + 1, block_size=bs,
+            dtype=cfg.dtype, device="cuda", quantization=cfg.quantization))
+        calls = []
+        m.route_log = []
+        out, _, _ = m.prefill(cache.k, cache.v, tokens, lengths, tables)
+        seq, pos = [out], lengths.clone()
+        calls.append((S, m.route_log))
+        for i in range(steps):
+            if backend == "torch":
+                fed.append(out.argmax(-1).to(torch.int32))
+            m.route_log = []
+            out, _, _ = m.decode_step(cache.k, cache.v, fed[i], pos, tables)
+            calls.append((1, m.route_log))
+            seq.append(out)
+            pos = pos + 1
+        logits[backend], routes[backend] = torch.stack(seq), calls
+        del m, cache
+    tag = f"moe backends [{cfg.quantization or 'bf16'}]"
+    if not torch.isfinite(logits["cuda"]).all():
+        raise AssertionError("non-finite logits from the CUDA path")
+    tainted, agree, diffs = set(), 0, []
+    total = {"set": 0, "keep": 0, "near_tie": [], "cascade": 0,
+             "decisions": 0}
+    for call, ((width, got), (_, want)) in enumerate(
+            zip(routes["cuda"], routes["torch"])):
+        flips = route_flips(got, want, width, tainted)
+        for k in ("set", "keep", "cascade", "decisions"):
+            total[k] += flips[k]
+        total["near_tie"] += [(call, *f) for f in flips["near_tie"]]
+        for row in range(B):
+            if row in tainted:
+                continue
+            agree += 1
+            diffs.append((logits["cuda"][call, row]
+                          - logits["torch"][call, row]).abs().max().item())
+    gaps = [f[-1] for f in total["near_tie"]]
+    diff = max(diffs, default=float("nan"))
+    log(f"{tag}: {B} rows x ({S}-token prefill + {steps} decode steps): "
+        f"{total['decisions']} (token, layer) decisions, {total['set']} set "
+        f"flips, {total['keep']} keep flips, {len(gaps)} near-ties (max "
+        f"plain gap {max(gaps, default=0.0):.3e}, ROUTE_TIE {ROUTE_TIE}), "
+        f"{total['cascade']} cascades; near-ties (call, layer, row, "
+        f"position, gap) {[(c, l, r, p, round(g, 5)) for c, l, r, p, g in total['near_tie'][:12]]}; "
+        f"rows flipped {sorted(tainted)}; logits on {agree} agreeing (row, "
+        f"call) pairs: max_abs_diff {diff:.3e} (tol {LOGIT_TOL})")
+    if not agree:
+        raise AssertionError(f"{tag}: no row agreed at every layer")
+    if not diff <= LOGIT_TOL:
+        raise AssertionError(f"{tag}: logits differ by {diff} on rows whose "
+                             f"routes agree")
+    return {"flips": total["set"] + total["keep"], "gaps": gaps,
+            "agreeing": agree, "logit_diff": diff}
+
+
+def moe_phase(torch, card, profile=False) -> dict:
+    """Llama-125M-MoE (``families.llama_125m_moe``) on the card: (a) its
+    training phase (``train_phase``: B1-B3 launching 12 layers x steps,
+    the loss falling; MFU by active parameters); (b) is the gradient check
+    of ``train_backends_phase`` at the end of the run; (c) the engine
+    phase in bf16 and int8 (``engine_phase``: streams equal pass to pass,
+    every decode step of the second pass a graph replay, B4/B5 launches
+    12 x calls by trace and by flight ring, a graph replay against the
+    eager step with equal routes) with 4 host launch API calls a decode
+    step and the weights' bytes split into experts and quantized leaves
+    (the quantized ones at most BYTES_RATIO_MAX of bf16's, the experts'
+    equal); (d) the CUDA path against the plain one by the route rule
+    (``moe_backends_phase``). ``profile`` adds a profiled train step and
+    a profiled warm pass of the bf16 engine."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    train = train_phase(torch, MOE, card)
+    if profile:
+        profile_train(torch, MOE)
+    launches, eager, nbytes, backends = {}, {}, {}, {}
+    for kind in (None, "int8"):
+        torch.cuda.empty_cache()
+        eng = engine_phase(torch, kind, MOE)
+        tag = f"engine[{MOE} {kind or 'bf16'}]"
+        suffix = f"_{kind}" if kind else ""
+        for base in ("paged_decode", "paged_prefill"):
+            launches[base + suffix] = eng["launches"][base + suffix]
+            eager[base + suffix] = eng["eager"][base + suffix]
+        if eng["ring"] != {k: eng["launches"][k] for k in eng["ring"]}:
+            raise AssertionError(f"{tag}: trace {eng['launches']} != flight "
+                                 f"ring {eng['ring']}")
+        calls = eng["window"]["launch_api_calls_per_step"]
+        if calls != DECODE_LAUNCH_API_CALLS:
+            raise AssertionError(f"{tag}: {calls} host launch API calls a "
+                                 f"decode step")
+        nbytes[kind] = dict(moe_weight_bytes(eng["engine"].executor.model),
+                            pool=eng["bytes"]["pool"])
+        log(f"{tag}: {eng['tokens_per_s']:.1f} tokens/s, decode step "
+            f"{eng['decode_ms']:.3f} ms, prefill {eng['prefill_ms']:.2f} ms,"
+            f" {eng['window']['device_ops_per_step']:g} device kernels and "
+            f"{calls:g} host launch API calls a decode step, "
+            f"{eng['window']['device_busy_ms_per_step']:.3f} ms device busy "
+            f"a decode step; weight and pool bytes {nbytes[kind]} on {card}")
+        backends[kind] = moe_backends_phase(torch, eng["engine"])
+        if profile and kind is None:
+            profile_phase(torch, eng)
+        del eng
+    ratio = {n: nbytes["int8"][n] / nbytes[None][n]
+             for n in ("quantizable", "pool")}
+    log(f"engine[{MOE} int8] bytes / bf16 engine's: quantized leaves "
+        f"{ratio['quantizable']:.4f}, pool {ratio['pool']:.4f} (max "
+        f"{BYTES_RATIO_MAX}); experts {nbytes['int8']['experts']} vs "
+        f"{nbytes[None]['experts']}")
+    if max(ratio.values()) > BYTES_RATIO_MAX:
+        raise AssertionError(f"{MOE} int8 bytes not halved: {ratio}")
+    if nbytes["int8"]["experts"] != nbytes[None]["experts"]:
+        raise AssertionError(f"{MOE} int8 experts' bytes differ from bf16's")
+    torch.cuda.empty_cache()
+    log(f"moe phase: {time.perf_counter() - t0:.1f} s")
+    return {"train": train, "launches": launches, "eager": eager,
+            "backends": backends}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3140,6 +3466,13 @@ def main() -> int:
     ob = obs_phase(torch, card)
     launches["llama_obs"], eager["llama_obs"] = ob["launches"], ob["eager"]
 
+    # the MoE path: Llama-125M-MoE trained and served, the counts reset
+    # just before each of its counted runs and read just after
+    paths = (*paths, MOE)
+    moe = moe_phase(torch, card, args.profile)
+    launches[MOE], eager[MOE] = moe["launches"], moe["eager"]
+    train[MOE] = moe["train"]
+
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")
              for suffix in ("", "_int8", "_fp8")]
@@ -3177,9 +3510,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"ray_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": sum(train[m]["launches"][name] for m in FAMILIES),
-            "launches_by_path": {m: train[m]["launches"][name]
-                                 for m in FAMILIES},
+            "launches": sum(t["launches"][name] for t in train.values()),
+            "launches_by_path": {m: t["launches"][name]
+                                 for m, t in train.items()},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3191,7 +3524,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     # last, so that a disagreement leaves every other phase's reading
-    for model in FAMILIES:
+    for model in (*FAMILIES, MOE):
         train_backends_phase(torch, model)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Time and profile the port's serving engine on one card: the engine
 workload of ``chip_smoke.py`` (a model family at full width and depth,
-GPT-2 125M or, with ``--model llama``, Llama-125M; seeded random weights,
+GPT-2 125M or, with ``--model llama``, Llama-125M, or with ``--model
+llama_moe`` Llama-125M-MoE; seeded random weights,
 8 requests of 30-900 prompt tokens, 32 new tokens each, one of them
 sampled).
 
@@ -207,13 +208,19 @@ def _config(**kw):
 
 
 def make_engine(quant=None, model="gpt", dtype=None, **overrides):
-    """The engine of family ``model`` at full width (``Family.full``):
-    GPT-2 125M, or Llama-125M, in ``dtype`` (None: the config's bf16);
+    """The engine of model ``model`` at full width: GPT-2 125M ("gpt"),
+    Llama-125M ("llama") or Llama-125M-MoE ("llama_moe",
+    ``families.MODELS``), in ``dtype`` (None: the config's bf16);
     ``overrides`` set other knobs (``prefix_caching``, ``speculative_k``)."""
     from ray_tpu_torch.models.families import family
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    cfg = family(model).full()
+    if model == "llama_moe":
+        from ray_tpu_torch.models.families import llama_125m_moe
+
+        model, cfg = "llama", llama_125m_moe()
+    else:
+        cfg = family(model).full()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     return LLMEngine(_config(model=model, model_config=cfg,
@@ -495,8 +502,10 @@ def main() -> int:
     parser.add_argument("--quant", nargs="*", default=[],
                         help="quantized engines to measure after bf16")
     parser.add_argument("--label", default="", help="tag of the JSON lines")
-    parser.add_argument("--model", default="gpt", choices=("gpt", "llama"),
-                        help="model family")
+    parser.add_argument("--model", default="gpt",
+                        choices=("gpt", "llama", "llama_moe"),
+                        help="model: a family at full width, or "
+                             "Llama-125M-MoE")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch

@@ -12,12 +12,17 @@ kernels B1-B3 on a card, and ``torch.optim.AdamW(lr=3e-4, betas=(0.9,
 on p). Weights are seeded random and the batch is one fixed draw of random
 token ids, reused every step.
 
-MFU: 6 * n_params * tokens/s over the card's dense bf16 peak (attention
-flops excluded, as in the JAX bench). The peak table holds the port's own
-cards; on the CPU MFU is not reported.
+MFU: 6 * active params * tokens/s over the card's dense bf16 peak
+(attention flops excluded, as in the JAX bench). The active parameters
+are those one token's forward uses: every parameter of a dense model; an
+MoE model's less the experts a token is not routed to
+(``llama.llama_active_params``: Llama-125M-MoE uses 143,616,768 of its
+370,109,184). The peak table holds the port's own cards; on the CPU MFU
+is not reported.
 
 Full width: each family's ``full()`` (``models/families.py``), GPT-2 125M
-and Llama-125M.
+and Llama-125M; ``config=families.llama_125m_moe()`` (with
+``model="llama"``) trains Llama-125M-MoE.
 
 Run: ``python -m ray_tpu_torch.benchmarks.gpt_mfu`` prints one JSON line
 (GPT-2 125M, batch 16 x 1024, on ``cuda:0``).
@@ -32,6 +37,7 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.families import family
+from ray_tpu_torch.models.llama import LlamaConfig, llama_active_params
 
 # dense bf16 tensor-core peak by device-name substring (NVIDIA data sheets,
 # SXM parts at their full power limit)
@@ -107,6 +113,8 @@ def run_gpt_bench(
                               max_seq_len=max(seq_len, cfg.max_seq_len))
     net = fam.init(cfg, seed=0, device=dev, train=True)
     n_params = sum(p.numel() for p in net.parameters())
+    n_active = (llama_active_params(cfg) if isinstance(cfg, LlamaConfig)
+                else n_params)
     opt = make_optimizer(net)
     batch = bench_batch(cfg, batch_size, seq_len, 1, dev)
 
@@ -122,12 +130,13 @@ def run_gpt_bench(
     seconds = time.perf_counter() - t0
     tps = batch_size * seq_len * steps / seconds if steps else 0.0
     peak = card_peak_tflops(dev)
-    achieved = 6.0 * n_params * tps / 1e12
+    achieved = 6.0 * n_active * tps / 1e12
     return {
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "model": model,
         "n_params": n_params,
+        "n_active_params": n_active,
         "batch_size": batch_size,
         "seq_len": seq_len,
         "remat": cfg.remat,

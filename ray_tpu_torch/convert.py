@@ -89,12 +89,14 @@ def gpt_params_to_numpy(state: dict, cfg: gpt.GPTConfig) -> dict:
 
 
 def llama_params_from_numpy(tree: dict, cfg: llama.LlamaConfig) -> dict:
-    """JAX Llama tree (dense SwiGLU) -> the port's state dict, as
-    ``gpt_params_from_numpy`` (quantized leaves byte for byte)."""
+    """JAX Llama tree -> the port's state dict, as
+    ``gpt_params_from_numpy`` (quantized leaves byte for byte); the block
+    names are the dense SwiGLU pair or, for ``num_experts > 0``, the MoE
+    router and experts (``llama.block_shapes``)."""
     return _from_numpy(tree, cfg.n_layer, llama._TOP,
-                       llama.LlamaBlock.SHAPES)
+                       llama.block_shapes(cfg))
 
 
 def llama_params_to_numpy(state: dict, cfg: llama.LlamaConfig) -> dict:
     """The port's Llama state dict -> the JAX tree layout, as f32 numpy."""
-    return _to_numpy(state, cfg.n_layer, llama._TOP, llama.LlamaBlock.SHAPES)
+    return _to_numpy(state, cfg.n_layer, llama._TOP, llama.block_shapes(cfg))

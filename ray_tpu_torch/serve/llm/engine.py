@@ -36,7 +36,13 @@ freed while a step is in flight are quarantined until the next sync
 
 ``EngineConfig.model`` names the model family (``decode.FAMILIES``:
 "llama", the default as in the JAX engine, or "gpt"); the pool holds the
-family's kv heads (``n_kv_head`` for Llama's grouped-query attention).
+family's kv heads (``n_kv_head`` for Llama's grouped-query attention). A
+Llama config with ``num_experts > 0`` serves Mixture-of-Experts
+(``ops/moe.py``; e.g. ``families.llama_125m_moe()``): every row and
+column of a step's bucket is routed, padding included, as the JAX engine
+routes it, so a stream depends on what it is batched with (its routes
+share the experts' capacity); the decode and verify graphs capture the
+routed step. Nothing else in the engine knows of experts.
 ``EngineConfig.quantization`` ("int8" | "fp8") serves from quantized
 weights and a quantized pool (``ops/quantization.py``).
 
@@ -115,8 +121,8 @@ What the port's engine leaves out of the JAX engine so far: the Serve
 deployment (``api.py``: class-aware shedding, Retry-After, the
 ``/debug/llm`` endpoint, ``FleetAggregator``), the export of spans into
 the distributed core's task events, the disaggregated handoff
-(``kv_layout``), sharded executors, and graphs for prefill (it runs
-eagerly).
+(``kv_layout``), sharded executors (and with them expert parallelism),
+and graphs for prefill (it runs eagerly).
 """
 from __future__ import annotations
 

@@ -98,8 +98,12 @@ def test_config_matches_jax_and_refuses_what_is_not_ported():
     assert (mine.head_dim, mine.kv_groups) == (ref.head_dim, ref.kv_groups)
     with pytest.raises(ValueError, match="multiple of n_kv_head"):
         LlamaConfig(n_head=6, n_kv_head=4)
-    with pytest.raises(ValueError, match="not ported yet"):
-        Llama(dataclasses.replace(mine, num_experts=4), "cpu")
+    # MoE is ported: tiny_moe is the JAX config field by field
+    moe, ref_moe = LlamaConfig.tiny_moe(), JaxLlamaConfig.tiny_moe()
+    for f in dataclasses.fields(moe):
+        if f.name not in ("dtype", "attention_backend"):
+            assert getattr(moe, f.name) == getattr(ref_moe, f.name), f.name
+    assert Llama(moe, "cpu").moe.num_experts == ref_moe.num_experts
     with pytest.raises(ValueError, match="not ported yet"):
         Llama(dataclasses.replace(mine, attention="ring"), "cpu")
 
