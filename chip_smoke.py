@@ -121,16 +121,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    0.5 s) at the 10th decode step: every stream fails (the wedge within
    0.75 s), one dump each, the pool whole; then a fresh engine repeats
    the streams;
-13. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+13. drives the port's distributed core (``core_phase``):
+   ``ray_tpu_torch.init`` (the object store and the scheduler core built
+   with g++ at first use) must autodetect ``GPU: 1``; a ``num_gpus=1``
+   task must see ``CUDA_VISIBLE_DEVICES`` "0", one device and this card;
+   Llama-125M's bf16 weights (the engine phases' seed) go through the
+   object store as CPU tensors; a ``num_gpus=1`` actor builds
+   ``LLMEngine`` on its ``cuda:0`` from them and serves the engine
+   workload three times, its streams equal to this process's engine's on
+   the same weights, its counted pass (profiled in the actor) launching
+   B4 12 times a decode step and B5 12 times a prefill call by its trace
+   and its flight ring; after ``kill`` its worker is gone, after
+   ``shutdown`` the store, its workers and its ``rtt_store_<pid>_``
+   segments; prints no-op task and actor-call round trips (p50, p99 of
+   200), put/get GB/s of the weights, the actor's start seconds and
+   tokens/s through the actor against in-process, beside the card line;
+14. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
    families' engine and training paths, the prefix path, the
    speculative path ``llama_spec``, the preemption path
-   ``llama_preempt``, the observability path ``llama_obs`` and the MoE
-   path ``llama_moe``; a paged
+   ``llama_preempt``, the observability path ``llama_obs``, the MoE
+   path ``llama_moe`` and the core path ``llama_core`` (the actor's
+   flight ring); a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-14. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
+15. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
    training phase's first weights and batch ([16, 1025]), holds the loss
    through the CUDA kernels against the plain backend's (LOSS_TOL) and
    every gradient against the model in f32, no further from it than the
@@ -3340,6 +3356,280 @@ def moe_phase(torch, card, profile=False) -> dict:
             "backends": backends}
 
 
+# ------------------------------------------------------------------ core
+
+CORE_ROUND_TRIPS = 200  # no-op task and actor-call round trips timed
+CORE_STORE_BYTES = 1 << 30
+
+
+class CoreEngine:
+    """The core phase's engine, in a ``num_gpus=1`` actor: Llama-125M bf16
+    (``engine_profile.make_engine``'s geometry) on the actor's ``cuda:0``,
+    built from weights the driver carried through the object store. This
+    file runs as ``__main__``, so the class travels to the worker by value
+    (``_private/serialization.py``). ``weights`` is ``[ObjectRef]``: nested,
+    so the worker leaves it unread until ``__init__`` times the read."""
+
+    def __init__(self, weights, submitted_at):
+        start = time.time()
+        self.start_s = {"spawn": start - submitted_at}
+        import torch
+
+        self.start_s["import_torch"] = time.time() - start
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.benchmarks import engine_profile as ep
+
+        t = time.time()
+        params = rt.get(weights[0], timeout=120)
+        self.start_s["get_weights"] = time.time() - t
+        t = time.time()
+        self.engine = ep.make_engine(None, "llama", params=params)
+        torch.cuda.synchronize()
+        self.start_s["engine_build"] = time.time() - t
+
+    def device(self) -> dict:
+        import os
+
+        import torch
+
+        return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "count": torch.cuda.device_count(),
+                "name": torch.cuda.get_device_name(0),
+                "engine": str(self.engine.device)}
+
+    def warm(self, prompts, params) -> dict:
+        """The first pass over the requests: it captures the decode graphs
+        (their seconds are the last part of the actor's start)."""
+        import torch
+        from ray_tpu_torch.benchmarks import engine_profile as ep
+
+        run = ep.serve(torch, self.engine, prompts, params)
+        fns = self.engine.fns
+        self.start_s["graph_capture"] = fns.capture_seconds
+        return {"outs": run["outs"], "seconds": run["seconds"],
+                "graphs": fns.graphs_captured, "start_s": dict(self.start_s)}
+
+    def timed(self, prompts, params) -> dict:
+        import torch
+        from ray_tpu_torch.benchmarks import engine_profile as ep
+
+        run = ep.serve(torch, self.engine, prompts, params)
+        return {"outs": run["outs"], "seconds": run["seconds"]}
+
+    def counted(self, prompts, params) -> dict:
+        """A pass under the profiler of this process, the wrappers' counts
+        reset just before it: the paged launches of its trace, the
+        wrappers' eager launches, the engine's calls and graph replays,
+        and its flight ring's count (``ring_launches``)."""
+        import torch
+        from ray_tpu_torch.benchmarks import engine_profile as ep
+        from ray_tpu_torch.ops import paged_attention as pa
+
+        eng = self.engine
+        pa.reset_launches()
+        mark = ring_mark(eng)
+        was = (eng.num_prefill_calls, eng.num_decode_steps, eng.fns.replays)
+        prof = ep.profiled_pass(torch, eng, prompts, params)
+        return {"outs": prof["outs"], "trace": prof["paged_launches"],
+                "eager": dict(pa.LAUNCHES), "ring": ring_launches(eng, mark),
+                "prefill_calls": eng.num_prefill_calls - was[0],
+                "decode_steps": eng.num_decode_steps - was[1],
+                "replays": eng.fns.replays - was[2],
+                "idle_share": prof["idle_share"],
+                "n_layer": eng.model_cfg.n_layer}
+
+    def ping(self):
+        return None
+
+    def pid(self) -> int:
+        import os
+
+        return os.getpid()
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def round_trips(rt, make_ref) -> list:
+    """Milliseconds of ``CORE_ROUND_TRIPS`` submit-and-get round trips."""
+    rt.get(make_ref(), timeout=60)  # a warm worker
+    out = []
+    for _ in range(CORE_ROUND_TRIPS):
+        t = time.perf_counter()
+        rt.get(make_ref(), timeout=60)
+        out.append(1e3 * (time.perf_counter() - t))
+    return out
+
+
+def core_phase(torch, card) -> dict:
+    """The distributed core on the card: ``ray_tpu_torch.init`` must
+    autodetect ``GPU: 1``; a ``num_gpus=1`` task must see
+    ``CUDA_VISIBLE_DEVICES`` "0", one device and this card; Llama-125M's
+    bf16 weights (seed of the engine phases) go through the object store
+    as CPU tensors; a ``num_gpus=1`` actor builds ``LLMEngine`` on its
+    ``cuda:0`` from them and serves the engine workload, whose streams
+    must equal this process's in-process engine's on the same weights,
+    and whose counted pass (profiled in the actor) must launch B4 12 times
+    a decode step and B5 12 times a prefill call, by its trace and by
+    its flight ring. After ``kill`` the actor's worker must be gone, after
+    ``shutdown`` the store and its workers, and no segment of that store
+    (``rtt_store_<pid>_``) may remain. Prints round trips, put/get rates, the actor's
+    start seconds and tokens/s, each beside the card line."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.models.families import family
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the actor's engine gets the card's memory
+    node = rt.init(num_cpus=4, object_store_memory=CORE_STORE_BYTES)
+    res = rt.cluster_resources()
+    log(f"core: init {time.perf_counter() - t0:.2f} s (with the g++ build of "
+        f"the store and scheduler where not built yet); node resources {res}")
+    if res.get("GPU") != 1.0:
+        raise AssertionError(f"autodetected GPU {res.get('GPU')}, expected 1")
+    name = torch.cuda.get_device_name(0)
+
+    @rt.remote(num_gpus=1)
+    def gpu_task():
+        import os
+
+        import torch
+
+        return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.device_count(), torch.cuda.get_device_name(0))
+
+    seen = tuple(rt.get(gpu_task.remote(), timeout=120))
+    log(f"core: a num_gpus=1 task saw CUDA_VISIBLE_DEVICES, device count, "
+        f"name = {seen}")
+    if seen != ("0", 1, name):
+        raise AssertionError(f"num_gpus=1 task saw {seen}, expected "
+                             f"('0', 1, {name!r})")
+
+    @rt.remote
+    def noop():
+        return None
+
+    task_ms = round_trips(rt, noop.remote)
+    log(f"core: no-op task round trip p50 {percentile(task_ms, 0.5):.3f} ms,"
+        f" p99 {percentile(task_ms, 0.99):.3f} ms ({CORE_ROUND_TRIPS} "
+        f"trips) on {card}")
+
+    cfg = family("llama").full()
+    model = family("llama").init(cfg, ep.ENGINE["seed"],
+                                 torch.device("cuda", 0))
+    weights = {k: v.detach().cpu() for k, v in model.weights().items()}
+    del model
+    torch.cuda.empty_cache()
+    nbytes = sum(v.numel() * v.element_size() for v in weights.values())
+    t = time.perf_counter()
+    ref = rt.put(weights)
+    put_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = rt.get(ref, timeout=60)
+    get_s = time.perf_counter() - t
+    if set(back) != set(weights) or not all(
+            back[k].dtype == v.dtype and torch.equal(back[k], v)
+            for k, v in weights.items()):
+        raise AssertionError("the weights read back from the store differ")
+    del back
+    log(f"core: Llama-125M bf16 weights, {len(weights)} tensors, {nbytes} B:"
+        f" put {put_s * 1e3:.1f} ms = {nbytes / put_s / 1e9:.2f} GB/s, get "
+        f"(zero-copy views onto the store's mapping) {get_s * 1e3:.1f} ms = "
+        f"{nbytes / get_s / 1e9:.2f} GB/s on {card}")
+
+    prompts, params = ep.workload(cfg.vocab_size)
+    t = time.time()
+    actor = rt.remote(num_gpus=1)(CoreEngine).remote([ref], t)
+    warm = rt.get(actor.warm.remote(prompts, params), timeout=600)
+    dev = rt.get(actor.device.remote(), timeout=60)
+    log(f"core: the actor's device {dev}; start "
+        f"{ {k: round(v, 3) for k, v in warm['start_s'].items()} } s "
+        f"(spawn = its submit to __init__; {warm['graphs']} decode graphs) "
+        f"on {card}")
+    if (dev["visible"], dev["count"], dev["name"], dev["engine"]) != (
+            "0", 1, name, "cuda:0"):
+        raise AssertionError(f"the actor's device {dev}")
+    t = time.perf_counter()
+    timed = rt.get(actor.timed.remote(prompts, params), timeout=600)
+    timed_wall = time.perf_counter() - t
+    counted = rt.get(actor.counted.remote(prompts, params), timeout=600)
+    actor_ms = round_trips(rt, actor.ping.remote)
+    log(f"core: actor call round trip p50 {percentile(actor_ms, 0.5):.3f} "
+        f"ms, p99 {percentile(actor_ms, 0.99):.3f} ms ({CORE_ROUND_TRIPS} "
+        f"trips) on {card}")
+
+    n_layer = counted["n_layer"]
+    want = {"paged_decode": n_layer * counted["decode_steps"],
+            "paged_prefill": n_layer * counted["prefill_calls"]}
+    trace = {k: counted["trace"].get(k, 0) for k in want}
+    others = {k: n for k, n in counted["trace"].items() if k not in want}
+    log_launch_counts("core[actor llama bf16]", trace, counted["ring"])
+    log(f"core: the actor's counted pass: {counted['prefill_calls']} prefill "
+        f"calls, {counted['decode_steps']} decode steps "
+        f"({counted['replays']} from graphs); B4/B5 launches, trace {trace},"
+        f" ring {counted['ring']} (expected {want}); eager "
+        f"{counted['eager']}; idle share {counted['idle_share']:.3f}")
+    if (trace != want or counted["ring"] != want or any(others.values())
+            or counted["replays"] != counted["decode_steps"]
+            or min(counted["prefill_calls"], counted["decode_steps"]) == 0):
+        raise AssertionError(f"the actor's launches {counted['trace']} / "
+                             f"ring {counted['ring']} != {want}")
+    if counted["eager"].get("paged_prefill") != want["paged_prefill"] or \
+            counted["eager"].get("paged_decode"):
+        raise AssertionError(f"the actor's eager launches {counted['eager']}")
+
+    # the same workload on the same weights in this process
+    engine = ep.make_engine(None, "llama", params=weights)
+    local_warm = ep.serve(torch, engine, prompts, params)
+    local = ep.serve(torch, engine, prompts, params)
+    for tag, outs in (("warm", warm["outs"]), ("timed", timed["outs"]),
+                      ("counted", counted["outs"]),
+                      ("in-process second pass", local["outs"])):
+        if outs != local_warm["outs"]:
+            raise AssertionError(f"core: the actor's {tag} streams differ "
+                                 f"from the in-process engine's")
+    ntok = sum(map(len, local["outs"]))
+    if ntok != len(prompts) * ep.NEW_TOKENS:
+        raise AssertionError(f"core: {ntok} tokens")
+    log(f"core: streams equal: the actor's 3 passes and the in-process "
+        f"engine's 2 ({len(prompts)} requests, {ntok} tokens a pass); "
+        f"tokens/s in the actor {ntok / timed['seconds']:.1f} (through the "
+        f"call {ntok / timed_wall:.1f}), in-process "
+        f"{ntok / local['seconds']:.1f} on {card}")
+    del engine
+
+    pid = rt.get(actor.pid.remote(), timeout=60)
+    rt.kill(actor)
+    deadline = time.monotonic() + 30
+    while pid_alive(pid) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if pid_alive(pid):
+        raise AssertionError(f"the killed actor's worker {pid} is alive")
+    # this run's store and workers only: another checkout's cluster on
+    # the same machine is none of this run's business
+    store_pid = node.store_proc.pid
+    worker_pids = [w.proc.pid for w in node.raylet._all_workers.values()
+                   if w.proc is not None]
+    rt.shutdown()
+    left = {"store": pid_alive(store_pid),
+            "workers": [p for p in worker_pids if pid_alive(p)],
+            "segments": [n for n in os.listdir("/dev/shm")
+                         if n.startswith(f"rtt_store_{store_pid}_")]}
+    log(f"core: after kill the actor's worker {pid} is gone; after "
+        f"shutdown: {left}")
+    if left["store"] or left["workers"] or left["segments"]:
+        raise AssertionError(f"left after shutdown: {left}")
+    torch.cuda.empty_cache()
+    log(f"core phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": counted["ring"], "eager": counted["eager"],
+            "task_ms": task_ms, "actor_ms": actor_ms}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -3472,6 +3762,13 @@ def main() -> int:
     moe = moe_phase(torch, card, args.profile)
     launches[MOE], eager[MOE] = moe["launches"], moe["eager"]
     train[MOE] = moe["train"]
+
+    # the core path: Llama-125M bf16 in a num_gpus=1 actor of the port's
+    # distributed core, its counts reset just before its counted pass (in
+    # the actor's process) and read just after, from its flight ring
+    paths = (*paths, "llama_core")
+    core = core_phase(torch, card)
+    launches["llama_core"], eager["llama_core"] = core["launches"], core["eager"]
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")

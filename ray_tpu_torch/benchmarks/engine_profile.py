@@ -207,10 +207,12 @@ def _config(**kw):
     return EngineConfig(**{k: v for k, v in kw.items() if k in names})
 
 
-def make_engine(quant=None, model="gpt", dtype=None, **overrides):
+def make_engine(quant=None, model="gpt", dtype=None, params=None,
+                **overrides):
     """The engine of model ``model`` at full width: GPT-2 125M ("gpt"),
     Llama-125M ("llama") or Llama-125M-MoE ("llama_moe",
-    ``families.MODELS``), in ``dtype`` (None: the config's bf16);
+    ``families.MODELS``), in ``dtype`` (None: the config's bf16), on
+    ``params`` (a state dict; None: the seeded weights of ``ENGINE``);
     ``overrides`` set other knobs (``prefix_caching``, ``speculative_k``)."""
     from ray_tpu_torch.models.families import family
     from ray_tpu_torch.serve.llm import LLMEngine
@@ -225,7 +227,7 @@ def make_engine(quant=None, model="gpt", dtype=None, **overrides):
         cfg = dataclasses.replace(cfg, dtype=dtype)
     return LLMEngine(_config(model=model, model_config=cfg,
                              quantization=quant, **{**ENGINE, **overrides}),
-                     auto_step=False)
+                     params=params, auto_step=False)
 
 
 def make_prefix_engine(quant=None, model="llama", **overrides):

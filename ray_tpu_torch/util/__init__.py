@@ -1,2 +1,3 @@
 """Utilities of the port (counterpart of ``ray_tpu/util``): the metrics
-registry (``metrics``) and process-local tracing spans (``tracing``)."""
+registry (``metrics``), tracing spans (``tracing``) and the scheduling
+strategies of the core (``scheduling_strategies``)."""

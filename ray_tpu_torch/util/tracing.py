@@ -7,12 +7,14 @@ a stored trace context (``current_context()``) re-enters on another thread
 (``record_span``: the engine turns a finished request's timeline into
 spans this way). Every span lands in a bounded ring of this process
 (``drain_buffered_spans``), and ``spans_to_chrome`` renders spans as
-chrome://tracing events.
+chrome://tracing events. In a process of the distributed core (a driver
+after ``init``, a worker) each span is also recorded as a ``SPAN`` task
+event, and a task whose submitter carried a trace context runs inside
+``task_span``, so its spans parent under the submitter's.
+``span_if_active`` opens a span only under an active trace.
 
-The reference also exports each span into the worker's task events and
-reads whole traces back from the GCS (``task_span``, ``get_trace``,
-``trace_to_chrome``), and its Serve path opens ``span_if_active``; those
-come with the Serve deployment and the distributed core.
+Reading whole traces back from the GCS (``get_trace``,
+``trace_to_chrome``) comes with the Serve deployment.
 
     from ray_tpu_torch.util import tracing
 
@@ -77,12 +79,29 @@ def attach_context(ctx: dict | None):
 def _record(name: str, trace_id: str, span_id: str,
             parent_span_id: str | None, start: float, end: float,
             attrs: dict | None, kind: str) -> None:
+    from ray_tpu_torch._private.worker import global_worker_or_none
+
     with _buffer_lock:
         _buffer.append({
             "name": name, "kind": kind, "trace_id": trace_id,
             "span_id": span_id, "parent_span_id": parent_span_id,
             "start": start, "end": end, "attrs": attrs or {},
         })
+    w = global_worker_or_none()
+    if w is None:
+        return
+    w.task_events.record(
+        task_id=w.task_id.binary(), job_id=w.job_id.binary(), name=name,
+        event="SPAN", task_type=kind,
+        extra={
+            "trace_id": trace_id,
+            "span_id": span_id,
+            "parent_span_id": parent_span_id,
+            "start": start,
+            "end": end,
+            "attrs": attrs or {},
+        },
+    )
 
 
 def record_span(
@@ -118,6 +137,37 @@ def span(name: str, **attrs: Any):
         _current.reset(token)
         _record(name, trace_id, span_id, parent[1] if parent else None,
                 start, time.time(), attrs, kind="span")
+
+
+@contextmanager
+def span_if_active(name: str, **attrs: Any):
+    """Like ``span`` but a no-op when no trace is active: hot paths
+    instrument with this so untraced work pays one contextvar read."""
+    if _current.get() is None:
+        yield None
+        return
+    with span(name, **attrs) as ctx:
+        yield ctx
+
+
+@contextmanager
+def task_span(spec: dict):
+    """Worker-side: run a task as a child span of its submitter's trace
+    context (the spec's ``trace_ctx``); a no-op without one."""
+    ctx = spec.get("trace_ctx")
+    if not ctx:
+        yield
+        return
+    span_id = os.urandom(8).hex()
+    token = _current.set((ctx["trace_id"], span_id))
+    start = time.time()
+    try:
+        yield
+    finally:
+        _current.reset(token)
+        _record(spec["name"], ctx["trace_id"], span_id,
+                ctx.get("parent_span_id"), start, time.time(),
+                {"task_id": spec["task_id"].hex()}, kind="task")
 
 
 def spans_to_chrome(spans: list[dict]) -> list[dict]:

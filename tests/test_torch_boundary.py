@@ -1,6 +1,8 @@
 """The port's boundaries: ``ray_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of ``ray_tpu``, nor ``prometheus_client`` (the
-card's machine does not have it); entry points never fall back to the CPU
+neither JAX nor anything of ``ray_tpu``, nor ``prometheus_client``,
+``msgpack``, ``cloudpickle`` or ``psutil`` (the card's machine has none of
+them; the core carries its own wire and by-value pickler); entry points
+never fall back to the CPU
 on their own; a kernel wrapper refuses a CPU tensor; the serving path
 reads one clock."""
 from __future__ import annotations
@@ -14,7 +16,8 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "prometheus_client")
+FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "prometheus_client", "msgpack",
+             "cloudpickle", "psutil")
 
 
 def _port_files():
@@ -59,6 +62,11 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch.benchmarks.gpt_mfu\n"
         "import ray_tpu_torch.util.metrics, ray_tpu_torch.util.tracing\n"
         "import ray_tpu_torch._private.chaos\n"
+        "import ray_tpu_torch._private.worker, ray_tpu_torch._private.raylet\n"
+        "import ray_tpu_torch._private.gcs\n"
+        "import ray_tpu_torch._private.object_store\n"
+        "import ray_tpu_torch._private.serialization\n"
+        "import ray_tpu_torch._private.node, ray_tpu_torch.actor\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
