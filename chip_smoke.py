@@ -115,7 +115,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    counters against ``stats()`` and the streams, the TTFT and TPOT
    sample counts, the host-sync count against the flight ring, the
    paged launches of the trace against 12 x the ring's steps (every
-   counted pass above prints the two side by side), 4 host launch API
+   counted pass prints the two side by side and, where the trace is
+   short, whether its missing launches lie at the pass's start, its end
+   or in its middle: ``shortfall_where``), 4 host launch API
    calls a decode step, goodput and serving MFU, the instrumentation's
    host ms a step; then a chaos raise and a wedge (a 2 s delay, watchdog
    0.5 s) at the 10th decode step: every stream fails (the wedge within
@@ -136,23 +138,41 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    segments; prints no-op task and actor-call round trips (p50, p99 of
    200), put/get GB/s of the weights, the actor's start seconds and
    tokens/s through the actor against in-process, beside the card line;
-14. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+14. serves through the port's Serve (``serve_phase``): Llama-125M bf16
+   in a ``num_gpus=1`` replica of ``build_llm_app`` behind the
+   controller, router and standard-library HTTP proxy; ``serve.run`` to
+   HEALTHY and the replica's start by part; the engine workload at once
+   through the handle, over HTTP (server-sent events) and traced in the
+   replica (tokens/s, TTFT p50/p99 beside in-process; streams against
+   the in-process engine's by the top-2 gap rule; each request alone
+   equal through the handle and over HTTP; B4/B5 launches 12 x the
+   replica's flight ring, read through ``/debug/llm``, and by its trace);
+   the controller killed while 8 streams run (every stream completes;
+   the replica adopted); an f32 app refusing an overload burst with 503
+   and each class's Retry-After (``serve_requests_shed`` = the 503s),
+   then its replica killed mid-stream (the streams resumed on the
+   replica the controller restarts: greedy equal to the uninterrupted
+   in-process streams, sampled tokens their keyed draws'); nothing left
+   after shutdown;
+15. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
    families' engine and training paths, the prefix path, the
    speculative path ``llama_spec``, the preemption path
    ``llama_preempt``, the observability path ``llama_obs``, the MoE
-   path ``llama_moe`` and the core path ``llama_core`` (the actor's
-   flight ring); a paged
+   path ``llama_moe``, the core path ``llama_core`` (the actor's
+   flight ring) and the Serve path ``llama_serve`` (the replica's);
+   a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-15. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
+16. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
    training phase's first weights and batch ([16, 1025]), holds the loss
    through the CUDA kernels against the plain backend's (LOSS_TOL) and
    every gradient against the model in f32, no further from it than the
    plain bf16 path's up to the margin derived from control runs
    (``grad_agreement.gate``; the CUDA-vs-plain reading printed beside);
-   then ``{"ok": true, "device": ...}`` last.
+   prints the whole run's seconds, then ``{"ok": true, "device": ...}``
+   last.
 
 Any failure raises, so the exit code is not 0. Without a CUDA card, or
 outside a checkout, it exits 2 and prints no result. ``--quick`` stops
@@ -1087,8 +1107,10 @@ def engine_phase(torch, quant=None, model="gpt") -> dict:
     eager = dict(pa.LAUNCHES)
     launches = dict.fromkeys(pa.LAUNCHES, 0)
     launches.update(prof["paged_launches"])
-    ring = ring_launches(engine, mark, suffix)
-    log_launch_counts(tag, launches, ring)
+    recs = ring_records(engine.debug_dump(), mark)
+    ring = ring_counts(recs, cfg.n_layer, suffix)
+    log_launch_counts(tag, launches, ring, prof["paged_walls"], recs,
+                      cfg.n_layer)
     want = dict.fromkeys(launches, 0)
     want[decode] = cfg.n_layer * decode_steps
     want[prefill] = cfg.n_layer * prefill_calls
@@ -1574,38 +1596,79 @@ def long_prefill_phase(torch) -> None:
 
 
 def ring_mark(engine) -> int:
-    """The engine's flight-ring step count now (``ring_launches`` counts
+    """The engine's flight-ring step count now (``ring_records`` takes
     the records after it)."""
     return engine.debug_dump()["steps_total"]
 
 
-def ring_launches(engine, since: int, suffix: str = "") -> dict:
-    """A second count of a pass's paged launches, not from the profiler:
-    the engine's own flight ring after step ``since`` gives its decode
-    steps that dispatched (B4: n_layer each) and its prefill calls and
-    verify steps (B5: n_layer each)."""
-    dump = engine.debug_dump()
+def ring_records(dump: dict, since: int) -> list:
+    """The flight ring's records after step ``since`` of a
+    ``debug_dump()``; raises if the ring dropped any of them."""
     recs = [r for r in dump["steps"] if r["step"] > since]
     if dump["steps_total"] - since != len(recs):
         raise AssertionError(
             f"the flight ring ({dump['capacity']}) lost records of the pass")
-    n_layer = engine.model_cfg.n_layer
-    decode = sum(r["kind"] == "decode" and r["batch"] > 0 for r in recs)
-    prefill = sum(r["kind"] in ("prefill", "prefill_chunk", "verify")
-                  for r in recs)
-    return {"paged_decode" + suffix: n_layer * decode,
-            "paged_prefill" + suffix: n_layer * prefill}
+    return recs
 
 
-def log_launch_counts(tag, traced: dict, ring: dict) -> None:
+def _launching(name: str, r: dict) -> bool:
+    """Whether ring record ``r`` launched paged kernel ``name``: B4 in a
+    decode step that dispatched, B5 in a prefill call or verify step."""
+    if name.startswith("paged_decode"):
+        return r["kind"] == "decode" and r["batch"] > 0
+    return r["kind"] in ("prefill", "prefill_chunk", "verify")
+
+
+def ring_counts(recs: list, n_layer: int, suffix: str = "") -> dict:
+    """A second count of a pass's paged launches, not from the profiler:
+    the flight ring's records of the pass (``ring_records``) give its
+    decode steps that dispatched (B4: n_layer each) and its prefill calls
+    and verify steps (B5: n_layer each)."""
+    return {name + suffix: n_layer * sum(_launching(name, r) for r in recs)
+            for name in ("paged_decode", "paged_prefill")}
+
+
+def shortfall_where(name: str, walls: list, recs: list, n_layer: int) -> str:
+    """Where the launches of ``name`` that a trace lacks lie in the pass
+    (ROADMAP Queue C 4): ring steps that launch it and whose next step
+    ended before the trace's first launch of it (under the lag-1 pipeline
+    a step's kernels run at most a step late, so these ran before the
+    first traced launch: lost at the start), steps that began after its
+    last launch (lost at the end), and the rest (lost in the middle, or
+    one step at an edge). ``walls``: the trace's launch start times (wall
+    seconds, ``engine_profile.paged_walls``); ``recs``: the ring's records
+    of the pass (wall ``ts``, host ``dur_ms``)."""
+    steps = [r for r in recs if _launching(name, r)]
+    if not walls:
+        return f"{name}: no launch in the trace, {len(steps)} ring steps"
+    first, last = walls[0], walls[-1]
+    ends = [r["ts"] + r.get("dur_ms", 0.0) / 1e3 for r in recs]
+    before = sum(_launching(name, r) and i + 1 < len(recs)
+                 and ends[i + 1] < first for i, r in enumerate(recs))
+    after = sum(r["ts"] > last for r in steps)
+    missing = len(steps) - len(walls) // n_layer
+    return (f"{name}: the trace holds {len(walls)} launches "
+            f"({len(walls) / n_layer:g} steps of {n_layer}) against "
+            f"{len(steps)} ring steps; missing at the start {before} "
+            f"steps, at the end {after}, the rest {missing - before - after}"
+            f" (in the middle, or one step at an edge)")
+
+
+def log_launch_counts(tag, traced: dict, ring: dict, walls: dict,
+                      recs: list, n_layer: int) -> None:
     """The trace's paged launches beside the ring's, and where they
-    differ, which of the two is short."""
+    differ, which of the two is short; where the trace is short, where in
+    the pass its shortfall lies (``shortfall_where``, from the trace's
+    launch times ``walls`` and the ring's records ``recs``)."""
     parts = []
     for name, n in ring.items():
         t = traced.get(name, 0)
         verdict = ("equal" if t == n else f"the trace is short by {n - t}"
                    if t < n else f"the ring is short by {t - n}")
         parts.append(f"{name} trace {t} / ring {n} ({verdict})")
+        if t < n:
+            parts[-1] += "; " + shortfall_where(name, walls.get(name, []),
+                                                recs, n_layer)
     log(f"{tag}: paged launches, the trace beside the engine's flight ring "
         f"x n_layer: " + "; ".join(parts))
 
@@ -1764,6 +1827,7 @@ def prefix_phase(torch, kind, card, profile_host=False) -> dict:
     def wave_context():  # one trace a wave keeps each trace small
         with hooks[next(order)], profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ep.anchor(prof)
             yield
         profs.append(prof)
 
@@ -1773,11 +1837,16 @@ def prefix_phase(torch, kind, card, profile_host=False) -> dict:
                            wave_context, timed_moves=False)
     eager = dict(pa.LAUNCHES)
     launches = dict.fromkeys(pa.LAUNCHES, 0)
+    walls: dict = {}
     for prof in profs:
         for name, n in ep.paged_launches(prof).items():
             launches[name] += n
-    log_launch_counts(tag, launches, ring_launches(
-        engine, mark, f"_{kind}" if kind else ""))
+        for name, w in ep.paged_walls(prof).items():
+            walls[name] = sorted(walls.get(name, []) + w)
+    recs = ring_records(engine.debug_dump(), mark)
+    log_launch_counts(tag, launches, ring_counts(
+        recs, cfg.n_layer, f"_{kind}" if kind else ""), walls, recs,
+        cfg.n_layer)
     calls = [sum(w[k] for w in counted.values())
              for k in ("prefill_calls", "decode_steps")]
     want = dict.fromkeys(launches, 0)
@@ -2038,6 +2107,7 @@ def spec_counted_pass(torch, engine, prompts, params, kind, tag) -> dict:
     mark = ring_mark(engine)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        ep.anchor(prof)
         run = ep.spec_serve(torch, engine, prompts, params)
     eager = dict(pa.LAUNCHES)
     calls = (engine.num_prefill_calls - was[0],
@@ -2045,7 +2115,9 @@ def spec_counted_pass(torch, engine, prompts, params, kind, tag) -> dict:
              engine.num_verify_steps - was[2])
     launches = dict.fromkeys(pa.LAUNCHES, 0)
     launches.update(ep.paged_launches(prof))
-    log_launch_counts(tag, launches, ring_launches(engine, mark, suffix))
+    recs = ring_records(engine.debug_dump(), mark)
+    log_launch_counts(tag, launches, ring_counts(recs, n_layer, suffix),
+                      ep.paged_walls(prof), recs, n_layer)
     want = dict.fromkeys(launches, 0)
     want["paged_decode" + suffix] = n_layer * calls[1]
     want["paged_prefill" + suffix] = n_layer * (calls[0] + calls[2])
@@ -2516,17 +2588,17 @@ def batch_dependence(torch, engine, prompts) -> float:
 
 
 def divergences(torch, engine, prompts, params, outs, tag, max_gap,
-                max_slip) -> None:
-    """Print how many streams of the preemption-on engine equal the off
-    engine's (``outs[True]``, ``outs[False]``) and each greedy row's
-    divergence with the off engine's (``engine``'s) top-2 logit gap
-    there: at ``max_gap`` or more a fault. A sampled row is held token by
-    token instead, in both engines' streams: each token's ``draw_slip``
-    on ``engine``'s logits after the stream so far, recomputed alone,
-    must stay under ``max_slip``."""
+                max_slip, names=("off", "on")) -> None:
+    """Print how many streams of the second run (``outs[True]``, by
+    default the preemption-on engine's) equal the first's
+    (``outs[False]``, ``engine``'s) and each greedy row's divergence with
+    ``engine``'s top-2 logit gap there: at ``max_gap`` or more a fault. A
+    sampled row is held token by token instead, in both runs' streams:
+    each token's ``draw_slip`` on ``engine``'s logits after the stream so
+    far, recomputed alone, must stay under ``max_slip``."""
+    off, on = names
     same = sum(a == b for a, b in zip(outs[False], outs[True]))
-    log(f"{tag}: preemption-on streams equal off in {same} of "
-        f"{len(prompts)}")
+    log(f"{tag}: {on} streams equal {off} in {same} of {len(prompts)}")
     for row, (a, b) in enumerate(zip(outs[False], outs[True])):
         sp = params[row]
         pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
@@ -2539,8 +2611,8 @@ def divergences(torch, engine, prompts, params, outs, tag, max_gap,
                      for pre, v in slips.items()}
             log(f"{tag}: row {row} (sampled) "
                 + ("equal" if pos is None else f"diverges at generated "
-                   f"position {pos} (off {a[pos]}, on {b[pos]})")
-                + "; draw slips off/on: "
+                   f"position {pos} ({off} {a[pos]}, {on} {b[pos]})")
+                + f"; draw slips {off}/{on}: "
                 + ", ".join(f"{sum(x > 0 for x in slips[pre])} tokens off "
                             f"their draw, worst {slips[pre][worst[pre]]:.4e}"
                             f" at {worst[pre]}" for pre in (False, True)))
@@ -2553,8 +2625,8 @@ def divergences(torch, engine, prompts, params, outs, tag, max_gap,
             continue
         gap = top2_gap(torch, engine, prompts[row] + a[:pos])
         log(f"{tag}: row {row} (greedy) diverges at generated position "
-            f"{pos} (off {a[pos]}, on {b[pos]}); off top-2 logit gap there "
-            f"{gap:.4e}")
+            f"{pos} ({off} {a[pos]}, {on} {b[pos]}); {off} top-2 logit gap "
+            f"there {gap:.4e}")
         if gap >= max_gap:
             raise AssertionError(f"{tag}: row {row} diverges at a top-2 gap "
                                  f"of {gap}")
@@ -2642,13 +2714,16 @@ def priority_phase(torch, card) -> dict:
     mark = ring_mark(eng)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        ep.anchor(prof)
         counted = priority_pass(torch, eng, work)
     eager = dict(pa.LAUNCHES)
     priority_checks(eng, counted, work, tag)
     launches = dict.fromkeys(pa.LAUNCHES, 0)
     launches.update(ep.paged_launches(prof))
-    log_launch_counts(tag, launches, ring_launches(eng, mark))
     n_layer = eng.model_cfg.n_layer
+    recs = ring_records(eng.debug_dump(), mark)
+    log_launch_counts(tag, launches, ring_counts(recs, n_layer),
+                      ep.paged_walls(prof), recs, n_layer)
     want = dict.fromkeys(launches, 0)
     want["paged_decode"] = n_layer * counted["counts"]["decode_steps"]
     want["paged_prefill"] = n_layer * counted["counts"]["prefill_calls"]
@@ -2763,7 +2838,7 @@ def obs_counted(torch, engine, prompts, params, card) -> dict:
     st, m1 = engine.stats(), obs_samples()
     outs, n = prof["outs"], len(prompts)
     ntok = sum(map(len, outs))
-    recs = [r for r in engine.debug_dump()["steps"] if r["step"] > mark]
+    recs = ring_records(engine.debug_dump(), mark)
     reasons = [engine.request_timeline(i)["finish_reason"]
                for i in prof["ids"]]
     checks = {  # (metric, the count it must equal)
@@ -2793,8 +2868,9 @@ def obs_counted(torch, engine, prompts, params, card) -> dict:
                              f"{bad}, finish reasons {reasons}")
     traced = dict.fromkeys(pa.LAUNCHES, 0)
     traced.update(prof["paged_launches"])
-    ring = ring_launches(engine, mark)
-    log_launch_counts(tag, traced, ring)
+    ring = ring_counts(recs, engine.model_cfg.n_layer)
+    log_launch_counts(tag, traced, ring, prof["paged_walls"], recs,
+                      engine.model_cfg.n_layer)
     want = dict.fromkeys(traced, 0)
     want.update(ring)
     n_layer = engine.model_cfg.n_layer
@@ -3420,7 +3496,7 @@ class CoreEngine:
         """A pass under the profiler of this process, the wrappers' counts
         reset just before it: the paged launches of its trace, the
         wrappers' eager launches, the engine's calls and graph replays,
-        and its flight ring's count (``ring_launches``)."""
+        and its flight ring's count (``ring_counts``)."""
         import torch
         from ray_tpu_torch.benchmarks import engine_profile as ep
         from ray_tpu_torch.ops import paged_attention as pa
@@ -3430,8 +3506,11 @@ class CoreEngine:
         mark = ring_mark(eng)
         was = (eng.num_prefill_calls, eng.num_decode_steps, eng.fns.replays)
         prof = ep.profiled_pass(torch, eng, prompts, params)
+        recs = ring_records(eng.debug_dump(), mark)
         return {"outs": prof["outs"], "trace": prof["paged_launches"],
-                "eager": dict(pa.LAUNCHES), "ring": ring_launches(eng, mark),
+                "walls": prof["paged_walls"], "recs": recs,
+                "eager": dict(pa.LAUNCHES),
+                "ring": ring_counts(recs, eng.model_cfg.n_layer),
                 "prefill_calls": eng.num_prefill_calls - was[0],
                 "decode_steps": eng.num_decode_steps - was[1],
                 "replays": eng.fns.replays - was[2],
@@ -3568,7 +3647,8 @@ def core_phase(torch, card) -> dict:
             "paged_prefill": n_layer * counted["prefill_calls"]}
     trace = {k: counted["trace"].get(k, 0) for k in want}
     others = {k: n for k, n in counted["trace"].items() if k not in want}
-    log_launch_counts("core[actor llama bf16]", trace, counted["ring"])
+    log_launch_counts("core[actor llama bf16]", trace, counted["ring"],
+                      counted["walls"], counted["recs"], n_layer)
     log(f"core: the actor's counted pass: {counted['prefill_calls']} prefill "
         f"calls, {counted['decode_steps']} decode steps "
         f"({counted['replays']} from graphs); B4/B5 launches, trace {trace},"
@@ -3628,6 +3708,667 @@ def core_phase(torch, card) -> dict:
     log(f"core phase: {time.perf_counter() - t0:.1f} s")
     return {"launches": counted["ring"], "eager": counted["eager"],
             "task_ms": task_ms, "actor_ms": actor_ms}
+
+
+# ----------------------------------------------------------------- serve
+
+SERVE_SLOW_S = 0.05    # the chaos delay after each chunk of a "slow" request
+SERVE_KILL_AFTER = 8   # tokens of each stream before its replica is killed
+SERVE_BURST = 12       # the overload burst, against max_waiting below
+SERVE_MAX_WAITING = 4
+SERVE_CLASSES = ("interactive", "default", "batch")
+
+
+def proc_start_wall() -> float:
+    """This process's start on the wall clock (``/proc``, 10 ms ticks)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def serve_replica_class():
+    """The serve phase's deployment class: ``LLMDeployment``'s own, which
+    ``build_llm_app`` binds, with what only the phase needs added: the
+    replica's process start on the wall clock and where it serves, and a
+    ``torch.profiler`` trace of a window taken inside the replica's
+    process, started and stopped on a thread of its own while the engine
+    is idle. Every method of ``LLMDeployment`` is inherited, so the
+    replica's hooks are the deployment's. Defined in a function, so the
+    class travels to the worker by value."""
+    from ray_tpu_torch.serve.llm.api import LLMDeployment
+
+    class ServeReplica(LLMDeployment.func_or_class):
+        def __init__(self, *args, **kwargs):
+            self.walls = {"init": time.time(), "proc_start": proc_start_wall()}
+            super().__init__(*args, **kwargs)
+
+        def where(self) -> dict:
+            return dict(walls=self.walls, pid=os.getpid(),
+                        visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                        device=str(self.engine.device),
+                        backend=self.engine.model_cfg.attention_backend)
+
+        def _counts(self) -> dict:
+            e = self.engine
+            return {"prefill_calls": e.num_prefill_calls,
+                    "decode_steps": e.num_decode_steps,
+                    "replays": e.fns.replays, "graphs": e.fns.graphs_captured}
+
+        def trace_start(self) -> dict:
+            import threading
+
+            from ray_tpu_torch.ops import paged_attention as pa
+
+            started, self._stop = threading.Event(), threading.Event()
+            self._trace = {}
+
+            def run():
+                from torch.profiler import ProfilerActivity, profile
+
+                from ray_tpu_torch.benchmarks import engine_profile as ep
+
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    ep.anchor(prof)
+                    started.set()
+                    self._stop.wait()
+                self._trace = {"launches": ep.paged_launches(prof),
+                               "walls": ep.paged_walls(prof)}
+
+            pa.reset_launches()
+            was = self._counts()
+            self._thread = threading.Thread(target=run, daemon=True,
+                                            name="serve-phase-trace")
+            self._thread.start()
+            if not started.wait(120):
+                raise RuntimeError("the profiler did not start")
+            return was
+
+        def trace_stop(self) -> dict:
+            from ray_tpu_torch.ops import paged_attention as pa
+
+            counts, eager = self._counts(), dict(pa.LAUNCHES)
+            self._stop.set()
+            self._thread.join(300)
+            return dict(self._trace, counts=counts, eager=eager,
+                        n_layer=self.engine.model_cfg.n_layer)
+
+    return ServeReplica
+
+
+class ChunkSource:
+    """A generator deployment that yields chunks shaped as
+    ``LLMDeployment``'s as fast as it can, no engine behind it: the
+    Serve path's own rate for streamed chunks."""
+
+    def __call__(self, payload):
+        for i in range(payload["n"]):
+            yield {"request_id": payload["request_id"], "token": i,
+                   "index": i, "text": ""}
+
+
+def chunk_rates(serve, streams=(1, 8), n_chunks=256, repeats=3) -> dict:
+    """Chunks a second that 1 and 8 concurrent streams of ``ChunkSource``
+    deliver through the handle, ``n_chunks`` in all, one reading a
+    repeat."""
+    import threading
+
+    handle = serve.run(serve.deployment(ChunkSource).options(
+        ray_actor_options={"num_cpus": 0.5}).bind(), name="chunks",
+        timeout_s=120)
+    list(handle.remote({"n": 4, "request_id": "warm"}))
+    rates = {n: [] for n in streams}
+    for _ in range(repeats):
+        for n in streams:
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=lambda i=i: list(
+                handle.remote({"n": n_chunks // n, "request_id": str(i)})))
+                for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            rates[n].append(n_chunks / (time.perf_counter() - t0))
+    serve.delete("chunks")
+    return rates
+
+
+def serve_app(rt, cfg, weights_ref, **options):
+    """``build_llm_app`` of ``cfg`` (as a dict of its fields) on the stored
+    weights, one ``num_gpus=1`` replica, its class subclassed by
+    ``serve_replica_class`` (same name, config and bound arguments)."""
+    from ray_tpu_torch.serve import Application, Deployment
+    from ray_tpu_torch.serve.llm import build_llm_app
+
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    app = build_llm_app(fields, params=weights_ref, num_replicas=1,
+                        ray_actor_options={"num_gpus": 1}, **options)
+    dep = Deployment(serve_replica_class(), app.deployment.name,
+                     app.deployment.config)
+    return Application(dep, app.args, app.kwargs)
+
+
+def serve_payloads(prompts, params, tag=None) -> list:
+    out = []
+    for p, sp in zip(prompts, params):
+        out.append({"prompt": list(p), "max_new_tokens": sp.max_new_tokens,
+                    "temperature": sp.temperature, "top_k": sp.top_k,
+                    "top_p": sp.top_p, "seed": sp.seed})
+        if tag:
+            out[-1]["chaos_tag"] = tag
+    return out
+
+
+def handle_wave(handle, payloads, on_chunk=None) -> dict:
+    """Every payload through ``stream_tokens`` at once, a thread each:
+    tokens, chunk indices, TTFT, serving replicas and each chunk's
+    (arrival, replica) per stream, and the wave's seconds."""
+    import threading
+
+    from ray_tpu_torch.serve.llm import stream_tokens
+
+    out = [None] * len(payloads)
+    errors = []
+    t0 = time.perf_counter()
+
+    def run(i):
+        try:
+            gen = stream_tokens(handle, payloads[i])
+            toks, idx, arrivals = [], [], []
+            for c in gen:
+                arrivals.append((time.perf_counter(),
+                                 gen._inner.replica_actor_id))
+                toks.append(c["token"])
+                idx.append(c["index"])
+                if on_chunk is not None:
+                    on_chunk(i, len(toks))
+            out[i] = {"tokens": toks, "index": idx,
+                      "ttft": arrivals[0][0] - t0, "arrivals": arrivals,
+                      "replicas": {r for _, r in arrivals},
+                      "end": time.perf_counter() - t0}
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"streams failed: {errors}")
+    return {"streams": out, "seconds": time.perf_counter() - t0}
+
+
+def http_stream(port, payload, headers=(), t0=None) -> dict:
+    """One request to ``/llm`` with ``Accept: text/event-stream``, read as
+    it arrives: status, headers, the chunks (or the JSON body of a
+    refusal) and the TTFT from ``t0``."""
+    import http.client
+
+    t0 = time.perf_counter() if t0 is None else t0
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/llm", body=json.dumps(payload), headers={
+            "Content-Type": "application/json",
+            "Accept": "text/event-stream", **dict(headers)})
+        resp = conn.getresponse()
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+        if resp.status != 200:
+            return {"status": resp.status, "headers": hdrs,
+                    "body": json.loads(resp.read())}
+        buf, chunks, ttft = b"", [], None
+        while True:
+            data = resp.read1(1 << 16)
+            if not data:
+                break
+            buf += data
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                if not event.startswith(b"data: "):
+                    raise AssertionError(f"not an SSE event: {event!r}")
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                chunks.append(json.loads(event[6:]))
+        if buf:
+            raise AssertionError(f"a partial SSE event: {buf!r}")
+        return {"status": 200, "headers": hdrs, "chunks": chunks,
+                "ttft": ttft, "end": time.perf_counter() - t0}
+    finally:
+        conn.close()
+
+
+def http_wave(port, payloads, headers=None) -> dict:
+    import threading
+
+    out = [None] * len(payloads)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+        i, http_stream(port, payloads[i], (headers or {}).get(i, ()), t0)))
+        for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(o is None for o in out):
+        raise AssertionError("an HTTP stream failed")
+    return {"streams": out, "seconds": time.perf_counter() - t0}
+
+
+def debug_llm(port, app) -> dict:
+    """``GET /debug/llm?app=``: the replica's ``debug_dump`` (flight ring,
+    stats, pool), through the proxy."""
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/debug/llm?app={app}", timeout=120) as r:
+        replicas = json.loads(r.read())["replicas"]
+    if len(replicas) != 1 or replicas[0] is None:
+        raise AssertionError(f"/debug/llm replicas {replicas}")
+    return replicas[0]
+
+
+def alive_actors(rt, node, class_name) -> dict:
+    """actor id -> worker pid of the live actors of ``class_name``."""
+    actors = rt.worker.global_worker().gcs.call("list_actors")["actors"]
+    ids = {a["actor_id"] for a in actors if a.get("class_name") == class_name
+           and a.get("state") != "DEAD"}
+    return {w.actor_id: w.proc.pid for w in node.raylet._all_workers.values()
+            if w.actor_id in ids and w.proc is not None}
+
+
+def wait_for(pred, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"timed out after {timeout_s} s waiting for {what}")
+
+
+def wave_rates(wave, ntok) -> str:
+    ttft = [s["ttft"] * 1e3 for s in wave["streams"]]
+    return (f"{ntok / wave['seconds']:.1f} tokens/s, TTFT p50 "
+            f"{percentile(ttft, 0.5):.1f} ms p99 {percentile(ttft, 0.99):.1f}"
+            f" ms (of {len(ttft)} requests, so p99 ~ the max)")
+
+
+def pool_whole_dump(dump, tag) -> None:
+    cache = dump["cache"]
+    if (cache["used_blocks"] or cache["reserved_blocks"]
+            or cache["freed_total"] != cache["allocated_total"]
+            or cache["free_blocks"] + cache["cached_blocks"]
+            != cache["num_blocks"] - 1):
+        raise AssertionError(f"{tag}: the replica's pool is not whole: "
+                             f"{cache}")
+
+
+def serve_phase(torch, card) -> dict:
+    """Serve on the card (``ray_tpu_torch.serve``), Llama-125M at full
+    width on the engine phases' geometry and workload
+    (``engine_profile.workload``): an HTTP proxy on port 0; the app
+    ``build_llm_app(EngineConfig(model="llama", ...), params=<ref of the
+    bf16 weights in the store>, num_replicas=1,
+    ray_actor_options={"num_gpus": 1})`` on route ``/llm``; ``serve.run``
+    to HEALTHY and the replica's start by part. Then the 8 requests at
+    once through the handle (``stream_tokens``; the first, cold wave),
+    over HTTP with server-sent events, through the handle again, and
+    through the handle under a ``torch.profiler`` trace in the replica:
+    tokens/s and TTFT p50/p99 beside in-process; every stream equal to the in-process engine's on
+    the same weights or its first divergence at a top-2 gap below
+    GAP_FAULT (a sampled row held to its keyed draw); each request alone
+    through the handle and over HTTP: equal; the traced wave's B4/B5
+    launches 12 x the decode steps / prefill calls of the replica's
+    flight ring (read through ``/debug/llm``); the pool whole. Then the
+    controller's process is killed while 8 streams run: every stream
+    completes, and the restarted controller recovers from its checkpoint
+    and adopts the replica (same actor id, no second start). Then an f32
+    app with ``max_waiting`` 4: a burst of 12 over HTTP (4 a priority
+    class): every refusal a 503 with its class's Retry-After, every
+    admitted stream to its budget, ``serve_requests_shed`` = the 503s;
+    then its replica is killed after 8 tokens of each of 4 streams (2
+    greedy, 2 sampled): ``stream_tokens`` resumes them on the replica the
+    controller restarts on the freed card, every greedy stream equal to
+    the uninterrupted in-process f32 stream and every sampled token its
+    keyed draw's (DRAW_NOISE). Last, after ``serve.shutdown()`` and
+    ``ray_tpu_torch.shutdown()`` no replica, controller or store process
+    and no ``rtt_store_`` segment is left. Requests tagged "slow" wait
+    SERVE_SLOW_S after each chunk in the replica (a chaos plan exported
+    through ``RAY_TPU_CHAOS_PLAN``), so the kills land mid-stream."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private import chaos
+    from ray_tpu_torch.benchmarks import engine_profile as ep
+    from ray_tpu_torch.models.families import family
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+    from ray_tpu_torch.util import metrics
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.environ[chaos.ENV_VAR] = chaos.FaultPlan(faults=(chaos.Fault(
+        point="llm.token", action="delay", when={"tag": "slow"},
+        times=None, arg=SERVE_SLOW_S),)).to_json()
+    node = rt.init(num_cpus=4, object_store_memory=CORE_STORE_BYTES)
+    try:
+        out = serve_checks(torch, card, rt, serve, node, ep, family,
+                           CONTROLLER_NAME, metrics)
+    finally:
+        os.environ.pop(chaos.ENV_VAR, None)
+        chaos.clear()
+        if rt.is_initialized():
+            serve.shutdown()
+            rt.shutdown()
+    torch.cuda.empty_cache()
+    log(f"serve phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
+def serve_checks(torch, card, rt, serve, node, ep, family, controller_name,
+                 metrics) -> dict:
+    from ray_tpu_torch.serve import api as serve_api
+    from ray_tpu_torch.serve import proxy
+
+    res = rt.cluster_resources()
+    if res.get("GPU") != 1.0:
+        raise AssertionError(f"autodetected GPU {res.get('GPU')}, expected 1")
+    serve.start(http_options={"port": 0})
+    port = serve_api._proxy.port
+    rates = chunk_rates(serve)
+    log(f"serve: the Serve path alone (a generator deployment with no "
+        f"engine, 256 chunks through the handle a reading, 3 readings): "
+        f"chunks/s on 1 stream {[round(r, 1) for r in rates[1]]}, on 8 "
+        f"streams {[round(r, 1) for r in rates[8]]} on {card}")
+    cfg = family("llama").full()
+    model = family("llama").init(cfg, ep.ENGINE["seed"],
+                                 torch.device("cuda", 0))
+    weights = {k: v.detach().cpu() for k, v in model.weights().items()}
+    del model
+    torch.cuda.empty_cache()
+    ref = rt.put(weights)
+    ecfg = ep._config(model="llama", model_config=cfg, **ep.ENGINE)
+
+    # -- start: serve.run to HEALTHY, the replica's start by part
+    t_run, t = time.time(), time.perf_counter()
+    handle = serve.run(serve_app(rt, ecfg, ref), name="llm",
+                       route_prefix="/llm", timeout_s=600)
+    healthy_s = time.perf_counter() - t
+    prompts, params = ep.workload(cfg.vocab_size)
+    payloads = serve_payloads(prompts, params)
+    n, ntok = len(prompts), len(prompts) * ep.NEW_TOKENS
+    w1 = handle_wave(handle, payloads)
+    parts = handle.where.remote().result(timeout=120)
+    dump = debug_llm(port, "llm")
+    walls = parts["walls"]
+    start = {"spawn": walls["proc_start"] - t_run,
+             "boot": walls["init"] - walls["proc_start"], **dump["start_s"]}
+    log(f"serve: serve.run to HEALTHY {healthy_s:.2f} s; the replica's "
+        f"start by part (s; spawn = serve.run's call to the worker "
+        f"process's start, boot = that to LLMDeployment's __init__: the "
+        f"worker's start and the deployment's load, which imports torch "
+        f"and the port; then LLMDeployment's own start_s from /debug/llm: "
+        f"get_weights, engine_build, and graph_capture = the first wave's "
+        f"{dump['executor']['graphs']['decode']} decode graphs): "
+        f"{ {k: round(v, 3) for k, v in start.items()} } on {card}")
+    if (parts["visible"], parts["device"], parts["backend"]) != (
+            "0", "cuda:0", "cuda"):
+        raise AssertionError(f"the replica's device {parts}")
+
+    # -- bf16: the first (cold) wave above, then warm: over HTTP, through
+    # the handle, and through the handle traced
+    w2 = http_wave(port, payloads)
+    for s in w2["streams"]:
+        if s["status"] != 200 or s["headers"]["content-type"] != \
+                "text/event-stream":
+            raise AssertionError(f"HTTP stream {s['status']} {s['headers']}")
+        if [c["index"] for c in s["chunks"]] != list(range(ep.NEW_TOKENS)):
+            raise AssertionError("HTTP chunk indices not 0..31")
+        s["tokens"] = [c["token"] for c in s["chunks"]]
+    w3 = handle_wave(handle, payloads)
+    mark = debug_llm(port, "llm")["steps_total"]
+    was = handle.trace_start.remote().result(timeout=300)
+    w4 = handle_wave(handle, payloads)
+    traced = handle.trace_stop.remote().result(timeout=600)
+    dump = debug_llm(port, "llm")
+    recs = ring_records(dump, mark)
+    n_layer = traced["n_layer"]
+    ring = ring_counts(recs, n_layer)
+    calls = {k: traced["counts"][k] - was[k] for k in was}
+    trace = {k: traced["launches"].get(k, 0) for k in ring}
+    eager = {k: traced["eager"].get(k, 0) for k in ring}
+    log_launch_counts("serve[replica llama bf16]", trace, ring,
+                      traced["walls"], recs, n_layer)
+    want_trace = {"paged_decode": ring["paged_decode"]
+                  + eager["paged_decode"],
+                  "paged_prefill": ring["paged_prefill"]}
+    log(f"serve: the replica's traced wave: {calls['prefill_calls']} "
+        f"prefill calls, {calls['decode_steps']} decode steps "
+        f"({calls['replays']} graph replays, {calls['graphs']} graphs "
+        f"captured in it); B4/B5 launches, trace {trace}, ring x {n_layer} "
+        f"{ring}, eager (the wrappers': prefill calls, and a new graph's "
+        f"warm-up step) {eager}")
+    others = {k: v for k, v in traced["launches"].items() if k not in ring}
+    if (trace != want_trace or any(others.values())
+            or ring != {"paged_decode": n_layer * calls["decode_steps"],
+                        "paged_prefill": n_layer * calls["prefill_calls"]}
+            or calls["replays"] != calls["decode_steps"]
+            or eager["paged_prefill"] != ring["paged_prefill"]
+            or eager["paged_decode"] != n_layer * calls["graphs"]
+            or min(calls["prefill_calls"], calls["decode_steps"]) == 0):
+        raise AssertionError(f"serve: the replica's launches {traced} "
+                             f"against its ring {ring} and calls {calls}")
+    pool_whole_dump(dump, "serve[bf16]")
+
+    # each request alone, through the handle and over HTTP: equal
+    from ray_tpu_torch.serve.llm import stream_tokens
+
+    alone = [[c["token"] for c in stream_tokens(handle, p)]
+             for p in payloads]
+    alone_http = [[c["token"] for c in http_stream(port, p)["chunks"]]
+                  for p in payloads]
+    if alone != alone_http:
+        raise AssertionError("serve: a request alone over HTTP streams "
+                             "other tokens than through the handle")
+
+    # the in-process engine on the same weights
+    engine = ep.make_engine(None, "llama", params=weights)
+    ep.serve(torch, engine, prompts, params)
+    local = ep.serve(torch, engine, prompts, params)
+    local_ttft = []
+    for rid in local["ids"]:
+        ev = {e["event"]: e["ts"]
+              for e in engine.request_timeline(rid)["events"]}
+        local_ttft.append(1e3 * (ev["first_token"] - ev["submitted"]))
+    for tag, outs in (("first wave", [s["tokens"] for s in w1["streams"]]),
+                      ("HTTP wave", [s["tokens"] for s in w2["streams"]]),
+                      ("handle wave", [s["tokens"] for s in w3["streams"]]),
+                      ("traced wave", [s["tokens"] for s in w4["streams"]]),
+                      ("alone", alone)):
+        if sum(map(len, outs)) != ntok:
+            raise AssertionError(f"serve {tag}: {sum(map(len, outs))} tokens")
+        divergences(torch, engine, prompts, params,
+                    {False: local["outs"], True: outs}, f"serve[bf16 {tag}]",
+                    GAP_FAULT, GAP_FAULT, names=("in-process", "served"))
+    log(f"serve[bf16]: the first wave through the handle (cold: graph "
+        f"capture, the prefill shapes' first calls) {wave_rates(w1, ntok)}; "
+        f"warm: through the handle {wave_rates(w3, ntok)}; over HTTP "
+        f"{wave_rates(w2, ntok)}; traced {wave_rates(w4, ntok)}; in-process "
+        f"{ntok / local['seconds']:.1f} tokens/s, TTFT p50 "
+        f"{percentile(local_ttft, 0.5):.1f} ms p99 "
+        f"{percentile(local_ttft, 0.99):.1f} ms ({n} requests, {ntok} "
+        f"tokens a wave) on {card}")
+
+    # -- the controller's process killed while 8 streams run
+    import threading
+
+    before = alive_actors(rt, node, "ReplicaActor")
+    (ctl_id, ctl_pid), = alive_actors(rt, node, "ServeController").items()
+    first = [0] * n
+    killed = threading.Event()
+    kill_at = []
+
+    def kill_controller(i, got):
+        first[i] = got
+        if min(first) >= 1 and not killed.is_set():
+            killed.set()
+            kill_at.append(time.perf_counter())
+            os.kill(ctl_pid, 9)
+
+    wk = handle_wave(handle, serve_payloads(prompts, params, "slow"),
+                     on_chunk=kill_controller)
+    if not killed.is_set():
+        raise AssertionError("the controller was not killed mid-wave")
+    outs = [s["tokens"] for s in wk["streams"]]
+    divergences(torch, engine, prompts, params,
+                {False: local["outs"], True: outs},
+                "serve[bf16 controller killed]", GAP_FAULT, GAP_FAULT,
+                names=("in-process", "served"))
+
+    def recovered():
+        try:
+            st = serve.status()
+        except Exception:  # noqa: BLE001 — the controller is restarting
+            return False
+        return (st["_controller"]["restarts"] == 1
+                and st["llm"]["LLMDeployment"]["status"] == "HEALTHY")
+
+    wait_for(recovered, 120, "the controller's recovery")
+    back_s = time.perf_counter() - kill_at[0]
+    st = serve.status()
+    after = alive_actors(rt, node, "ReplicaActor")
+    ctl = alive_actors(rt, node, "ServeController")
+    log(f"serve: controller killed (pid {ctl_pid}) after each of {n} "
+        f"streams had a token; all {n} completed ({ntok} tokens, the wave "
+        f"{wk['seconds']:.2f} s); the raylet restarted it in place (pid "
+        f"{ctl.get(ctl_id)}), "
+        f"it recovered from its checkpoint in "
+        f"{st['_controller']['recovery_seconds']:.3f} s (HEALTHY again "
+        f"{back_s:.2f} s after the kill) and adopted the replica: "
+        f"{after == before} on {card}")
+    if list(ctl) != [ctl_id] or ctl[ctl_id] == ctl_pid or after != before:
+        raise AssertionError(f"serve: after the controller's restart: "
+                             f"controllers {ctl}, replicas {after} (before "
+                             f"{before})")
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- f32: overload, then the replica killed mid-stream
+    serve.delete("llm")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = family("llama").init(cfg32, ep.ENGINE["seed"],
+                                 torch.device("cuda", 0))
+    weights32 = {k: v.detach().cpu() for k, v in model.weights().items()}
+    del model
+    torch.cuda.empty_cache()
+    ref32 = rt.put(weights32)
+    ecfg32 = dataclasses.replace(ecfg, model_config=cfg32,
+                                 max_waiting=SERVE_MAX_WAITING)
+    t = time.perf_counter()
+    handle = serve.run(serve_app(rt, ecfg32, ref32,
+                                 max_ongoing_requests=2 * SERVE_BURST),
+                       name="llm", route_prefix="/llm", timeout_s=600)
+    log(f"serve[f32]: serve.run to HEALTHY {time.perf_counter() - t:.2f} s")
+    bprompts, bparams = ep.workload(cfg.vocab_size, seed=1)
+    burst = serve_payloads((bprompts * 2)[:SERVE_BURST],
+                           (bparams * 2)[:SERVE_BURST])
+    shed0 = metrics.collect("serve_requests_shed")
+    hb = http_wave(port, burst, headers={
+        i: (("x-ray-tpu-priority", SERVE_CLASSES[i % 3]),)
+        for i in range(SERVE_BURST)})
+    shed1 = metrics.collect("serve_requests_shed")
+    refused = [(i, s) for i, s in enumerate(hb["streams"])
+               if s["status"] != 200]
+    shed = sum(v - shed0.get(k, 0.0) for k, v in shed1.items()
+               if k.startswith("serve_requests_shed_total"))
+    for i, s in refused:
+        if s["status"] != 503 or s["headers"].get("retry-after") \
+                != proxy._RETRY_AFTER[SERVE_CLASSES[i % 3]]:
+            raise AssertionError(f"serve overload: request {i} got "
+                                 f"{s['status']} {s['headers']}")
+    admitted = [s for s in hb["streams"] if s["status"] == 200]
+    if any(len(s["chunks"]) != ep.NEW_TOKENS or "error" in s["chunks"][-1]
+           for s in admitted):
+        raise AssertionError("serve overload: an admitted stream stopped "
+                             "short of its budget")
+    log(f"serve[f32 overload]: a burst of {SERVE_BURST} against max_waiting "
+        f"{SERVE_MAX_WAITING}: {len(admitted)} streamed to their "
+        f"{ep.NEW_TOKENS} tokens, {len(refused)} refused (503, Retry-After "
+        f"by class {[(SERVE_CLASSES[i % 3], s['headers']['retry-after']) for i, s in refused]}); "
+        f"serve_requests_shed moved {shed:g}")
+    if not refused or not admitted or shed != len(refused):
+        raise AssertionError(f"serve overload: {len(refused)} refused, "
+                             f"{len(admitted)} admitted, shed {shed}")
+
+    fprompts, fparams = prompts[:4], list(params[:4])
+    from ray_tpu_torch.serve.llm import SamplingParams
+
+    fparams[1] = SamplingParams(max_new_tokens=ep.NEW_TOKENS,
+                                temperature=0.8, top_p=0.9, seed=11)
+    engine32 = ep.make_engine(None, "llama", dtype=torch.float32,
+                              params=weights32)
+    ref_outs = ep.serve(torch, engine32, fprompts, fparams)["outs"]
+    (old_id, old_pid), = alive_actors(rt, node, "ReplicaActor").items()
+    seen = [0] * len(fprompts)
+    kill = {}
+
+    def kill_replica(i, got):
+        seen[i] = got
+        if min(seen) >= SERVE_KILL_AFTER and "at" not in kill:
+            kill["at"], kill["seen"] = time.perf_counter(), list(seen)
+            os.kill(old_pid, 9)
+
+    wf = handle_wave(handle, serve_payloads(fprompts, fparams, "slow"),
+                     on_chunk=kill_replica)
+    new = alive_actors(rt, node, "ReplicaActor")
+    outs = [s["tokens"] for s in wf["streams"]]
+    moved = sum(old_id in s["replicas"] and len(s["replicas"]) == 2
+                for s in wf["streams"])
+    resumed = [t for s in wf["streams"] for t, r in s["arrivals"]
+               if r != old_id]
+    resume_s = min(resumed) - kill["at"] if resumed and kill else math.nan
+    log(f"serve[f32 failover]: replica killed (pid {old_pid}) after "
+        f"{kill.get('seen')} tokens of its {len(fprompts)} streams; "
+        f"{moved} streams resumed on the replica the controller started on "
+        f"the freed card ({len(new)} live, old one gone: "
+        f"{old_id not in new}); first resumed token {resume_s:.2f} s after "
+        f"the kill on {card}")
+    if (not kill or moved != len(fprompts) or len(new) != 1
+            or old_id in new
+            or any(s["index"] != list(range(ep.NEW_TOKENS))
+                   for s in wf["streams"])):
+        raise AssertionError(f"serve failover: kill {kill}, moved {moved}, "
+                             f"replicas {new}")
+    divergences(torch, engine32, fprompts, fparams,
+                {False: ref_outs, True: outs}, "serve[f32 failover]", 0.0,
+                DRAW_NOISE, names=("uninterrupted in-process", "resumed"))
+    del engine32
+    stats = handle.stats.remote().result(timeout=120)
+    if stats["requests_resumed"] != len(fprompts):
+        raise AssertionError(f"resumed {stats['requests_resumed']}")
+
+    # -- teardown: nothing left
+    pids = dict(alive_actors(rt, node, "ReplicaActor"))
+    pids.update(alive_actors(rt, node, "ServeController"))
+    store_pid = node.store_proc.pid
+    workers = [w.proc.pid for w in node.raylet._all_workers.values()
+               if w.proc is not None]
+    serve.shutdown()
+    rt.shutdown()
+    deadline = time.monotonic() + 30
+    while (any(pid_alive(p) for p in pids.values())
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    left = {"replica/controller": [p for p in pids.values() if pid_alive(p)],
+            "store": pid_alive(store_pid),
+            "workers": [p for p in workers if pid_alive(p)],
+            "segments": [s for s in os.listdir("/dev/shm")
+                         if s.startswith(f"rtt_store_{store_pid}_")],
+            "proxy": serve_api._proxy is not None}
+    log(f"serve: after serve.shutdown() and shutdown(): {left}")
+    if any(left.values()):
+        raise AssertionError(f"left after shutdown: {left}")
+    return {"launches": ring, "eager": eager}
 
 
 # ------------------------------------------------------------------ main
@@ -3770,6 +4511,14 @@ def main() -> int:
     core = core_phase(torch, card)
     launches["llama_core"], eager["llama_core"] = core["launches"], core["eager"]
 
+    # the Serve path: Llama-125M bf16 in a num_gpus=1 replica behind the
+    # controller, router and HTTP proxy, its counts reset just before its
+    # traced wave (in the replica's process) and read just after, from its
+    # flight ring
+    paths = (*paths, "llama_serve")
+    sv = serve_phase(torch, card)
+    launches["llama_serve"], eager["llama_serve"] = sv["launches"], sv["eager"]
+
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")
              for suffix in ("", "_int8", "_fp8")]
@@ -3823,6 +4572,8 @@ def main() -> int:
     # last, so that a disagreement leaves every other phase's reading
     for model in (*FAMILIES, MOE):
         train_backends_phase(torch, model)
+    log(f"chip_smoke.py: {time.perf_counter() - t0:.1f} s from the kernels' "
+        f"build on {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

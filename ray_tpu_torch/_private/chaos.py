@@ -19,18 +19,28 @@ is active. The port's engine fires the reference's points:
                       block, or blocks); a failed capture is a lost cache
                       entry, never a correctness event
 
-Plans install in-process (``install``); the reference's export of a plan
-through ``RAY_TPU_CHAOS_PLAN`` to worker processes comes with the Serve
-deployment. Triggers are counters and exact-match context filters, and
+and Serve fires the reference's points of its layer: ``llm.token`` (after
+``LLMDeployment`` yields one chunk; context: index, resumed, tag),
+``llm.snapshot``, ``handle.dispatch`` (context: method),
+``replica_drain``, ``controller_scale``, ``controller.checkpoint``,
+``controller.kill`` and ``controller.recover``.
+
+Plans install in-process (``install``) or through the
+``RAY_TPU_CHAOS_PLAN`` environment variable (``FaultPlan.to_json``;
+worker processes inherit the environment, so a plan exported before the
+cluster starts reaches every replica and the controller). Triggers are counters and exact-match context filters, and
 ``FaultPlan.seed`` seeds the jittered delays, so a schedule replays
 identically.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
+
+ENV_VAR = "RAY_TPU_CHAOS_PLAN"
 
 
 class ChaosFault(RuntimeError):
@@ -64,6 +74,19 @@ class FaultPlan:
     seed: int = 0
     faults: tuple = ()
 
+    def to_json(self) -> str:
+        return json.dumps(
+            {"seed": self.seed, "faults": [asdict(f) for f in self.faults]}
+        )
+
+    @staticmethod
+    def from_json(blob: str) -> "FaultPlan":
+        raw = json.loads(blob)
+        return FaultPlan(
+            seed=int(raw.get("seed", 0)),
+            faults=tuple(Fault(**f) for f in raw.get("faults", ())),
+        )
+
 
 class _State:
     """The active plan and its per-fault counters."""
@@ -79,11 +102,14 @@ class _State:
 
 
 _installed: _State | None = None
+_env_state: _State | None = None
+_env_checked = False
 _mutex = threading.Lock()
 
 
 def install(plan: FaultPlan) -> FaultPlan:
-    """Activate ``plan`` in this process."""
+    """Activate ``plan`` in this process (over any plan of the
+    environment)."""
     global _installed
     with _mutex:
         _installed = _State(plan)
@@ -91,16 +117,36 @@ def install(plan: FaultPlan) -> FaultPlan:
 
 
 def clear() -> None:
-    """Deactivate the plan."""
-    global _installed
+    """Deactivate the in-process plan (a plan of the environment, if any,
+    is read again at the next ``fire``)."""
+    global _installed, _env_state, _env_checked
     with _mutex:
         _installed = None
+        _env_state = None
+        _env_checked = False
+
+
+def _active() -> _State | None:
+    global _env_state, _env_checked
+    if _installed is not None:
+        return _installed
+    if not _env_checked:
+        with _mutex:
+            if not _env_checked:
+                blob = os.environ.get(ENV_VAR)
+                if blob:
+                    try:
+                        _env_state = _State(FaultPlan.from_json(blob))
+                    except Exception:  # noqa: BLE001 — bad plan = no chaos
+                        _env_state = None
+                _env_checked = True
+    return _installed or _env_state
 
 
 def fire(point: str, **context) -> None:
-    """Hook site: trigger the matching faults of the active plan (one
-    attribute read when none is)."""
-    state = _installed
+    """Hook site: trigger the matching faults of the active plan (an
+    attribute read and, once, an environment read when none is)."""
+    state = _active()
     if state is None:
         return
     for i, f in enumerate(state.plan.faults):

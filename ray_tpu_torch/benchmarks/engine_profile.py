@@ -89,6 +89,8 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
 # a paged kernel's symbol; its second template argument is the pool's type
 _PAGED_KERNEL = re.compile(r"(paged_decode|paged_prefill)(?:_mma)?_kernel<([^>]*)>")
 _POOL_SUFFIX = {"signed char": "_int8", "__nv_fp8_e4m3": "_fp8"}
+# the CPU op that ties a trace's timeline to this process's wall clock
+ANCHOR = "ray_tpu_torch.anchor"
 
 
 def workload(vocab_size: int, new_tokens: int = NEW_TOKENS, seed: int = 0):
@@ -395,12 +397,50 @@ def paged_launches(prof) -> dict:
 
     out = {}
     for e in prof.key_averages():
-        m = _PAGED_KERNEL.search(e.key)
-        if e.device_type == DeviceType.CUDA and m:
-            pool = m.group(2).split(", ")[1]
-            name = m.group(1) + _POOL_SUFFIX.get(pool, "")
+        name = (_paged_name(e.key) if e.device_type == DeviceType.CUDA
+                else None)
+        if name is not None:
             out[name] = out.get(name, 0) + e.count
     return out
+
+
+def _paged_name(symbol: str) -> str | None:
+    m = _PAGED_KERNEL.search(symbol)
+    if m is None:
+        return None
+    return m.group(1) + _POOL_SUFFIX.get(m.group(2).split(", ")[1], "")
+
+
+def anchor(prof) -> None:
+    """Mark a running profile with this process's wall clock (call just
+    after the profiler starts): ``paged_walls`` maps the trace's times to
+    wall seconds through the mark."""
+    from torch.profiler import record_function
+
+    with record_function(ANCHOR):
+        prof.anchor_wall = time.time()
+
+
+def paged_walls(prof) -> dict:
+    """The wall-clock start (seconds) of every paged kernel launch on the
+    device in an ``anchor``-ed profile, by ``paged_launches``' names,
+    sorted. Against a flight ring's step records (wall ``ts``) it places
+    the launches a trace lacks."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    mark = next((e for e in events if e.name == ANCHOR), None)
+    if mark is None or not hasattr(prof, "anchor_wall"):
+        raise ValueError("the profile has no anchor: call anchor(prof) "
+                         "just after the profiler starts")
+    base = prof.anchor_wall - mark.time_range.start / 1e6
+    out: dict = {}
+    for e in events:
+        name = (_paged_name(e.name) if e.device_type == DeviceType.CUDA
+                else None)
+        if name is not None:
+            out.setdefault(name, []).append(base + e.time_range.start / 1e6)
+    return {k: sorted(v) for k, v in out.items()}
 
 
 def launch_calls(calls: dict) -> int:
@@ -413,6 +453,7 @@ def profiled_pass(torch, engine, prompts, params) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        anchor(prof)
         run = serve(torch, engine, prompts, params)
     rows = device_rows(prof)
     busy_ms = sum(r[0] for r in rows) / 1e3
@@ -423,6 +464,7 @@ def profiled_pass(torch, engine, prompts, params) -> dict:
             "decode_steps": len(run["steps"]["decode"]),
             "prefill_calls": len(run["steps"]["prefill"]),
             "paged_launches": paged_launches(prof),
+            "paged_walls": paged_walls(prof),
             "device_ms_by_kernel": {k[:90]: round(us / 1e3, 4)
                                     for us, _, k in rows[:15]},
             "device_calls_by_kernel": {k[:90]: n for _, n, k in rows[:15]}}

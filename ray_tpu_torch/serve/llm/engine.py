@@ -117,12 +117,9 @@ device. Every duration reads ``obs.clock`` and every timestamp
 ``obs.wall``; nothing of it reads a device tensor. The reference's chaos
 points fire at their counterpart sites (``_private/chaos.py``).
 
-What the port's engine leaves out of the JAX engine so far: the Serve
-deployment (``api.py``: class-aware shedding, Retry-After, the
-``/debug/llm`` endpoint, ``FleetAggregator``), the export of spans into
-the distributed core's task events, the disaggregated handoff
-(``kv_layout``), sharded executors (and with them expert parallelism),
-and graphs for prefill (it runs eagerly).
+What the port's engine leaves out of the JAX engine so far: the
+disaggregated handoff (``kv_layout``), sharded executors (and with them
+expert parallelism), and graphs for prefill (it runs eagerly).
 """
 from __future__ import annotations
 
@@ -980,6 +977,12 @@ class LLMEngine:
     @property
     def num_compiled_shapes(self) -> int:
         return self.fns.num_compiled_shapes
+
+    @property
+    def failed(self) -> bool:
+        """True once a step raised or the watchdog fired (the Serve
+        replica's health check reads it)."""
+        return self._failed is not None
 
     def request_timeline(self, request_id) -> dict | None:
         """One request's phase timeline, live or recently finished:

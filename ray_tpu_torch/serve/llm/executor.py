@@ -162,6 +162,11 @@ class SingleDeviceExecutor:
             self.model = fam.model(model_cfg, self.device).load_weights(params)
         self.fns = DecodeFns(self.model, cache)
         self._on_card = self.device.type == "cuda"
+        # read once here: describe() runs on other threads (a Serve
+        # replica's debug_dump) while the step thread may be capturing a
+        # CUDA graph, so it touches no CUDA API
+        self._device_name = (torch.cuda.get_device_name(self.device)
+                             if self._on_card else str(self.device))
         # (name, size) -> [buffer 0, buffer 1, index of the last one used]
         self._staging: dict[tuple, list] = {}
         # (name, B) -> [(pinned ids, event) 0, ... 1, index of the last]
@@ -220,8 +225,7 @@ class SingleDeviceExecutor:
         state only: safe to call while a step is in flight)."""
         return {
             "executor": self.kind, "devices": self.num_devices, "mesh": None,
-            "device": (torch.cuda.get_device_name(self.device)
-                       if self._on_card else str(self.device)),
+            "device": self._device_name,
             "attention_backend": self.model_cfg.attention_backend,
             "quantization": self.quantization,
             "speculative": self.speculative,

@@ -14,14 +14,17 @@ the reference's shapes; ``render_prometheus`` writes the text format
 (0.0.4) by hand and ``start_metrics_server`` serves it with ``wsgiref``.
 
 The registry is per process and separate from the JAX package's, so the
-two never see each other's series. ``FleetAggregator`` (the Serve
-controller's merge of many processes) is not ported yet.
+two never see each other's series. ``FleetAggregator`` is the Serve
+controller's merge of many processes' ``collect_families()`` snapshots
+into one plane (a copy of the reference's): entity labels per source,
+per-kind rollups and a bounded history ring a series.
 """
 from __future__ import annotations
 
 import logging
 import threading
 import time
+from collections import deque
 from typing import Sequence
 
 logger = logging.getLogger("ray_tpu_torch.metrics")
@@ -63,6 +66,7 @@ class _Metric:
         self.name = name
         self.description = description
         self.tag_keys = tuple(tag_keys)
+        self._default_tags: dict[str, str] = {}
         self._lock = threading.Lock()
         # label values (in tag_keys order) -> the series' state
         self._series: dict[tuple, dict] = {}
@@ -83,10 +87,15 @@ class _Metric:
     def _sample_names(self) -> tuple:
         return ()
 
+    def set_default_tags(self, tags: dict[str, str]):
+        """Tags every later call falls back to (a call's own win)."""
+        self._default_tags = dict(tags)
+        return self
+
     def _labels(self, tags: dict | None) -> tuple:
         if not self.tag_keys:  # one series; extra tags select nothing
             return ()
-        merged = tags or {}
+        merged = {**self._default_tags, **(tags or {})}
         missing = set(self.tag_keys) - set(merged)
         if missing:
             raise ValueError(
@@ -378,3 +387,146 @@ def start_metrics_server(port: int = 9090, addr: str = "0.0.0.0"):
                               name="metrics-server")
     thread.start()
     return server, server.server_port
+
+
+class FleetAggregator:
+    """Merges per-process ``collect_families()`` snapshots into one fleet
+    plane (driven by the Serve controller, one ``ingest`` per polled
+    replica/proxy report).
+
+    - Every source's samples are RELABELED with its entity labels
+      (``deployment``/``replica_id``/``pool_role``/...), so per-replica
+      series stay distinct at the single scrape target.
+    - Rollup series drop ``replica_id`` and merge across sources with
+      per-kind semantics: counters and histogram ``_bucket``/``_sum``/
+      ``_count`` samples SUM (bucket counts are preserved exactly);
+      gauges (and untyped families) are LAST-WRITE in report-stamp order.
+    - Each relabeled series also feeds a bounded ring-buffer history
+      (``history_samples`` newest ``(stamp, value)`` points, stamped with
+      the ingest stamp — the controller's ``obs.clock``). Sources are
+      never forgotten: a killed replica's last snapshot keeps the fleet
+      counters monotonic and its rings stay queryable post-mortem.
+    """
+
+    ROLLUP_DROP = ("replica_id",)
+
+    def __init__(self, history_samples: int = 360):
+        self.history_samples = max(1, int(history_samples))
+        self._lock = threading.Lock()
+        # source key -> {"stamp", "labels", "families"}; insertion order
+        # is irrelevant — fleet merges sort by stamp
+        self._sources: dict[str, dict] = {}
+        # relabeled series key -> deque[(stamp, value)]
+        self._history: dict[str, deque] = {}
+
+    def ingest(
+        self,
+        source: str,
+        families: dict[str, dict],
+        labels: dict[str, str],
+        stamp: float,
+    ) -> None:
+        """Replace ``source``'s snapshot and append every sample to its
+        history ring. Empty label values are dropped (Prometheus treats
+        absent and empty labels identically)."""
+        labels = {str(k): str(v) for k, v in (labels or {}).items() if v}
+        with self._lock:
+            self._sources[str(source)] = {
+                "stamp": float(stamp),
+                "labels": labels,
+                "families": families,
+            }
+            for fam in families.values():
+                for s in fam["samples"]:
+                    key = sample_key(s["name"], {**s["labels"], **labels})
+                    ring = self._history.get(key)
+                    if ring is None:
+                        ring = deque(maxlen=self.history_samples)
+                        self._history[key] = ring
+                    ring.append((float(stamp), float(s["value"])))
+
+    def sources(self) -> dict[str, dict]:
+        """{source: {"stamp", "labels"}} — who has reported, and when."""
+        with self._lock:
+            return {
+                src: {"stamp": rec["stamp"], "labels": dict(rec["labels"])}
+                for src, rec in self._sources.items()
+            }
+
+    def fleet_families(self) -> dict[str, dict]:
+        """One ``collect_families()``-shaped dict for the whole fleet:
+        per-source relabeled samples first, then the rollup samples
+        (``replica_id`` dropped, per-kind merge)."""
+        with self._lock:
+            recs = sorted(
+                self._sources.values(), key=lambda rec: rec["stamp"]
+            )
+            recs = [
+                {
+                    "stamp": rec["stamp"],
+                    "labels": dict(rec["labels"]),
+                    "families": rec["families"],
+                }
+                for rec in recs
+            ]
+        fams: dict[str, dict] = {}
+        # (family, sample name, rollup label items) -> merged value
+        rollup: dict[tuple, float] = {}
+        for rec in recs:  # stamp order => "last write" = newest report
+            for fname, fam in rec["families"].items():
+                out = fams.setdefault(
+                    fname,
+                    {
+                        "type": fam.get("type") or "untyped",
+                        "help": fam.get("help") or "",
+                        "samples": [],
+                    },
+                )
+                summed = out["type"] in ("counter", "histogram")
+                for s in fam["samples"]:
+                    labels = {**s["labels"], **rec["labels"]}
+                    out["samples"].append(
+                        {
+                            "name": s["name"],
+                            "labels": labels,
+                            "value": float(s["value"]),
+                        }
+                    )
+                    if not any(k in labels for k in self.ROLLUP_DROP):
+                        # nothing to drop: the per-source series IS the
+                        # rollup; emitting both would duplicate it
+                        continue
+                    rl = tuple(sorted(
+                        (k, v) for k, v in labels.items()
+                        if k not in self.ROLLUP_DROP
+                    ))
+                    key = (fname, s["name"], rl)
+                    if summed:
+                        rollup[key] = rollup.get(key, 0.0) + float(s["value"])
+                    else:
+                        rollup[key] = float(s["value"])
+        for (fname, sname, rl) in sorted(rollup, key=str):
+            fams[fname]["samples"].append(
+                {"name": sname, "labels": dict(rl), "value": rollup[(fname, sname, rl)]}
+            )
+        return fams
+
+    def fleet_text(self) -> str:
+        return render_prometheus(self.fleet_families())
+
+    def history(
+        self, series: str | None = None, prefix: str | None = None
+    ) -> dict[str, list[tuple[float, float]]]:
+        """Ring-buffer time series: ``{series_key: [(stamp, value), ...]}``
+        (oldest first). ``series`` selects one exact key (``sample_key``
+        spelling); ``prefix`` filters by key prefix; neither returns
+        everything. Killed sources' rings remain until process exit."""
+        with self._lock:
+            if series is not None:
+                ring = self._history.get(series)
+                return {series: list(ring)} if ring is not None else {}
+            return {
+                key: list(ring)
+                for key, ring in self._history.items()
+                if prefix is None or key.startswith(prefix)
+            }

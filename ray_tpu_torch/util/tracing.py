@@ -14,7 +14,7 @@ event, and a task whose submitter carried a trace context runs inside
 ``span_if_active`` opens a span only under an active trace.
 
 Reading whole traces back from the GCS (``get_trace``,
-``trace_to_chrome``) comes with the Serve deployment.
+``trace_to_chrome``) waits for the port's state API (``util/state.py``).
 
     from ray_tpu_torch.util import tracing
 

@@ -1,10 +1,12 @@
 """The port's boundaries: ``ray_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of ``ray_tpu``, nor ``prometheus_client``,
-``msgpack``, ``cloudpickle`` or ``psutil`` (the card's machine has none of
-them; the core carries its own wire and by-value pickler); entry points
-never fall back to the CPU
-on their own; a kernel wrapper refuses a CPU tensor; the serving path
-reads one clock."""
+``msgpack``, ``cloudpickle``, ``psutil``, ``aiohttp``, ``grpc`` or
+``requests`` (the card's machine has none of them; the core carries its
+own wire and by-value pickler, Serve its own HTTP proxy); entry points
+never fall back to the CPU on their own, and what the port has not got
+(the gRPC ingress, sharded replicas, the disaggregated handoff) raises;
+a kernel wrapper refuses a CPU tensor; the serving path reads one
+clock."""
 from __future__ import annotations
 
 import ast
@@ -17,7 +19,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "prometheus_client", "msgpack",
-             "cloudpickle", "psutil")
+             "cloudpickle", "psutil", "aiohttp", "grpc", "requests")
 
 
 def _port_files():
@@ -67,12 +69,46 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch._private.object_store\n"
         "import ray_tpu_torch._private.serialization\n"
         "import ray_tpu_torch._private.node, ray_tpu_torch.actor\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.llm.api\n"
+        "import ray_tpu_torch.serve.controller, ray_tpu_torch.serve.proxy\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_what_the_port_has_not_got_raises():
+    """No silent fallback: the gRPC ingress, the disaggregated handoff and
+    sharded replicas each raise ``NotImplementedError`` (no cluster is
+    needed to reach the refusal)."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import (
+        EngineConfig,
+        LLMDeployment,
+        build_llm_app,
+        stream_tokens,
+    )
+
+    cfg = EngineConfig(device="cpu")
+    with pytest.raises(NotImplementedError, match="gRPC"):
+        serve.start(grpc_options={"port": 0})
+    with pytest.raises(NotImplementedError, match="A9"):
+        build_llm_app(cfg, prefill_replicas=1)
+    with pytest.raises(NotImplementedError, match="A9"):
+        build_llm_app(cfg, tp=2)
+    with pytest.raises(NotImplementedError, match="A9"):
+        LLMDeployment.func_or_class(cfg, mesh={"tp": 2})
+    with pytest.raises(NotImplementedError, match="A9"):
+        LLMDeployment.func_or_class(cfg, prefill=object())
+    with pytest.raises(NotImplementedError, match="A9"):
+        stream_tokens(None, {"prompt": [1]}, prefill_handle=object())
+    from ray_tpu_torch.serve.config import DeploymentConfig
+
+    for role in ("prefill", "decode"):
+        with pytest.raises(NotImplementedError, match="A9"):
+            DeploymentConfig(pool_role=role)
 
 
 def test_one_clock_in_the_serving_path():
