@@ -152,20 +152,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and each class's Retry-After (``serve_requests_shed`` = the 503s),
    then its replica killed mid-stream (the streams resumed on the
    replica the controller restarts: greedy equal to the uninterrupted
-   in-process streams, sampled tokens their keyed draws'); nothing left
-   after shutdown;
-15. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+   in-process streams, sampled tokens their keyed draws'), after the
+   driver dropped its own ref of the weights (``serve.run`` holds it);
+   nothing left after shutdown;
+15. trains through the port's Train (``trainer_phase``): Llama-125M at
+   full width and depth, 16 x 1024, through ``TorchTrainer`` in a
+   ``num_gpus=1`` gang reserved by a placement group, 8 steps, each on
+   its own batch; checkpoints at steps 4 and 8 kept 2 by lowest loss;
+   the worker kills its process after step 5 and the gang resumes from
+   the step-4 checkpoint (``max_failures=1``). Every reported loss
+   against the same loop run in this process (to the bit where two such
+   runs agree to the bit), B1-B3 12 a step in the worker, the kept and
+   best checkpoints, the best read back, and after ``fit`` the
+   resources whole (the state API), the workers dead and the groups
+   removed; prints step ms through the gang and in process, each
+   checkpoint's bytes and save seconds, and the seconds from the death
+   to the resumed attempt's first step;
+16. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
    families' engine and training paths, the prefix path, the
    speculative path ``llama_spec``, the preemption path
    ``llama_preempt``, the observability path ``llama_obs``, the MoE
    path ``llama_moe``, the core path ``llama_core`` (the actor's
-   flight ring) and the Serve path ``llama_serve`` (the replica's);
+   flight ring), the Serve path ``llama_serve`` (the replica's) and
+   the Train path ``llama_trainer`` (B1-B3, the gang worker's counts);
    a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-16. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
+17. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
    training phase's first weights and batch ([16, 1025]), holds the loss
    through the CUDA kernels against the plain backend's (LOSS_TOL) and
    every gradient against the model in f32, no further from it than the
@@ -188,6 +203,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -4308,6 +4324,17 @@ def serve_checks(torch, card, rt, serve, node, ep, family, controller_name,
     engine32 = ep.make_engine(None, "llama", dtype=torch.float32,
                               params=weights32)
     ref_outs = ep.serve(torch, engine32, fprompts, fparams)["outs"]
+    # the driver drops its last reference to the weights before the kill:
+    # the replica started in the killed one's place reads them through
+    # the ref that serve.run holds while the app is deployed
+    held = [r.hex() for r in serve_api._bound_refs["llm"]]
+    ref32_hex = ref32.hex()
+    del ref32
+    gc.collect()
+    log(f"serve[f32 failover]: the driver dropped its ref of the weights "
+        f"({ref32_hex}); serve holds {held} for the app")
+    if held != [ref32_hex]:
+        raise AssertionError(f"serve holds {held}, not the weights' ref")
     (old_id, old_pid), = alive_actors(rt, node, "ReplicaActor").items()
     seen = [0] * len(fprompts)
     kill = {}
@@ -4369,6 +4396,338 @@ def serve_checks(torch, card, rt, serve, node, ep, family, controller_name,
     if any(left.values()):
         raise AssertionError(f"left after shutdown: {left}")
     return {"launches": ring, "eager": eager}
+
+
+# ------------------------------------------------------------ the trainer
+
+# Llama-125M at full width and depth through TorchTrainer in a num_gpus=1
+# gang: the batch of step s is drawn from seed TRAINER_SEED + s, so a
+# resumed attempt takes up the right batch
+TRAINER = dict(batch_size=16, seq_len=1024, steps=8, checkpoint_at=(4, 8),
+               die_after=5)
+TRAINER_SEED = 100
+TRAINER_LOSS_TOL = 1e-3  # absolute, gang against in-process, per step
+TRAINER_BUDGET_S = 90.0  # the phase's target, printed beside its seconds
+
+
+def trainer_model(torch, device):
+    """Llama-125M (weights seed 0) with AdamW, as ``run_gpt_bench``
+    builds them: f32 masters, bf16 activations, the fused lm-head loss."""
+    from ray_tpu_torch.benchmarks.gpt_mfu import make_optimizer
+    from ray_tpu_torch.models.families import family
+
+    fam = family("llama")
+    cfg = fam.full()
+    cfg = dataclasses.replace(
+        cfg, max_seq_len=max(TRAINER["seq_len"], cfg.max_seq_len))
+    net = fam.init(cfg, seed=0, device=device, train=True)
+    return cfg, net, make_optimizer(net)
+
+
+def trainer_step(torch, cfg, net, opt, step, device) -> float:
+    """Step ``step`` (from 1) on its own batch; -> its loss, synchronised."""
+    from ray_tpu_torch.benchmarks.gpt_mfu import bench_batch, train_step
+
+    batch = bench_batch(cfg, TRAINER["batch_size"], TRAINER["seq_len"],
+                        TRAINER_SEED + step, device)
+    return float(train_step(net, opt, batch))
+
+
+def state_digest(torch, state) -> list:
+    """Per tensor of a checkpoint's state (model and optimizer state
+    dicts, in key order), its float64 sum and sum of magnitudes, on the
+    tensor's device: equal states give equal digests."""
+    out = []
+
+    def visit(prefix, v):
+        if isinstance(v, dict):
+            for k in sorted(v, key=str):
+                visit(f"{prefix}/{k}", v[k])
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                visit(f"{prefix}/{i}", x)
+        elif isinstance(v, torch.Tensor):
+            d = v.detach().double()
+            out.append([prefix, float(d.sum()), float(d.abs().sum())])
+
+    visit("", state)
+    return out
+
+
+def trainer_loop(config):
+    """The phase's ``train_loop_per_worker``. Attempt 0 trains steps 1-8
+    from seed-0 weights and kills its own process right after reporting
+    step ``die_after`` (once the trainer has taken that report); attempt
+    1 loads the newest checkpoint in its trial dir and runs the steps
+    after it. Every step reports its loss, its ms and this process's
+    B1/B2/B3 launches since the loop began and the wall times of this
+    process's start, the loop's, its CUDA context's, the model's build
+    and the checkpoint's read; a checkpoint step also its checkpoint (model and optimizer
+    state dicts), its bytes, save seconds and ``state_digest``."""
+    import torch
+    from ray_tpu_torch.ops import attention as at
+    from ray_tpu_torch.train import Checkpoint, get_context, report
+    from ray_tpu_torch.train.session import get_session
+    from ray_tpu_torch.train.torch import get_device
+
+    walls = {"proc_start": proc_start_wall(), "loop": time.time()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = get_context()
+    attempt = ctx.experiment_config["attempt"]
+    device = get_device()
+    if device.type == "cuda":
+        torch.zeros(1, device=device)  # the process's CUDA context
+        torch.cuda.synchronize(device)
+    walls["cuda"] = time.time()
+    cfg, net, opt = trainer_model(torch, device)
+    walls["model"] = time.time()
+    first, resumed = 1, None
+    if attempt > 0:
+        names = sorted(n for n in os.listdir(ctx.get_trial_dir())
+                       if n.startswith("ckpt_"))
+        resumed = os.path.join(ctx.get_trial_dir(), names[-1])
+        state = Checkpoint(resumed).load_state(map_location=device)
+        net.load_state_dict(state["model"])
+        opt.load_state_dict(state["optimizer"])
+        first = state["step"] + 1
+        del state
+    walls["state"] = time.time()
+    at.reset_launches()
+    for step in range(first, TRAINER["steps"] + 1):
+        t = time.perf_counter()
+        loss = trainer_step(torch, cfg, net, opt, step, device)
+        metrics = {"step": step, "loss": loss, "attempt": attempt,
+                   "step_ms": 1e3 * (time.perf_counter() - t),
+                   "launches": dict(at.LAUNCHES), "at": time.time(),
+                   "device": str(device), "resumed_from": resumed,
+                   "walls": walls}
+        ckpt = None
+        if step in TRAINER["checkpoint_at"]:
+            state = {"model": net.state_dict(),
+                     "optimizer": opt.state_dict(), "step": step}
+            t = time.perf_counter()
+            ckpt = Checkpoint.from_state(
+                os.path.join(ctx.get_trial_dir(), f"ckpt_{step:03d}"), state)
+            metrics["save_s"] = time.perf_counter() - t
+            metrics["bytes"] = os.path.getsize(
+                os.path.join(ckpt.path, "state.pt"))
+            metrics["digest"] = state_digest(torch, state)
+        report(metrics, checkpoint=ckpt)
+        if attempt == 0 and step == TRAINER["die_after"]:
+            session = get_session()
+            deadline = time.monotonic() + 60
+            while session.consumed < step and time.monotonic() < deadline:
+                time.sleep(0.01)
+            with open(os.path.join(ctx.get_trial_dir(), "died_at"), "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+
+
+def trainer_reference(torch) -> dict:
+    """The loop's steps 1-8 in this process, from the same seeds: losses
+    and step ms; the training state is freed before it returns."""
+    device = torch.device("cuda", 0)
+    cfg, net, opt = trainer_model(torch, device)
+    losses, ms = [], []
+    for step in range(1, TRAINER["steps"] + 1):
+        t = time.perf_counter()
+        losses.append(trainer_step(torch, cfg, net, opt, step, device))
+        ms.append(1e3 * (time.perf_counter() - t))
+    del net, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms}
+
+
+def trainer_phase(torch, card) -> dict:
+    """Train on the card through the port's Train: ``TorchTrainer`` of
+    ``trainer_loop`` on ``ScalingConfig(num_workers=1, use_gpu=True)``,
+    checkpoints kept 2 by lowest loss, ``max_failures=1``, on
+    ``ray_tpu_torch.init(num_cpus=4, num_gpus=1)``. The worker dies after
+    reporting step 5; the gang restarts and resumes from the step-4
+    checkpoint. Checks: ``fit`` ends without error at step 8; every loss
+    the gang reported (steps 1-5, then 5-8) equals this process's run of
+    the same loop from the same seeds within TRAINER_LOSS_TOL, and to the
+    bit when two in-process runs are equal to the bit; B1, B2 and B3
+    launch 12 times a step in the worker; the kept checkpoints are the two
+    of lowest loss and ``Result.checkpoint`` the best, whose
+    ``load_state`` equals what the worker saved (``state_digest``); after
+    ``fit`` the resources are whole, both TrainWorkers dead and both
+    placement groups ``REMOVED``. Prints step ms through the gang and in
+    process, each checkpoint's bytes and save seconds, and the seconds
+    from the worker's death to attempt 1's first step. -> the worker's
+    launches, both attempts summed."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig)
+    from ray_tpu_torch.train.torch import TorchTrainer
+    from ray_tpu_torch.util import state
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs = [trainer_reference(torch) for _ in range(2)]
+    ref = refs[0]["losses"]
+    bitwise = refs[0]["losses"] == refs[1]["losses"]
+
+    attempts = []
+
+    class RecordingTrainer(TorchTrainer):
+        """Keeps each attempt's Result (``fit`` returns the last)."""
+
+        def _run_attempt(self, storage, manager, attempt):
+            attempts.append(super()._run_attempt(storage, manager, attempt))
+            return attempts[-1]
+
+    root = tempfile.mkdtemp(prefix="trainer_phase_")
+    node = rt.init(num_cpus=4, num_gpus=1)
+    try:
+        trainer = RecordingTrainer(
+            trainer_loop,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(
+                name="llama", storage_path=root,
+                checkpoint_config=CheckpointConfig(
+                    num_to_keep=2, checkpoint_score_attribute="loss",
+                    checkpoint_score_order="min"),
+                failure_config=FailureConfig(max_failures=1)))
+        t = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t
+        out = trainer_checks(torch, card, node, state, result, attempts,
+                             ref, bitwise, fit_s)
+        out["in_process_ms"] = [r["ms"] for r in refs]
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    gang = out["gang_ms"]
+    log(f"trainer: step ms through the gang, by attempt "
+        f"{[[round(x, 2) for x in a] for a in gang]} (median after each "
+        f"attempt's first step "
+        f"{statistics.median([x for a in gang for x in a[1:]]):.2f}) "
+        f"against in-process {[[round(x, 2) for x in r['ms']] for r in refs]} "
+        f"(median after the first "
+        f"{statistics.median([x for r in refs for x in r['ms'][1:]]):.2f}) "
+        f"on {card}")
+    seconds = time.perf_counter() - t_phase
+    log(f"trainer phase: {seconds:.1f} s (target {TRAINER_BUDGET_S:.0f} s) "
+        f"on {card}")
+    return out
+
+
+def trainer_checks(torch, card, node, state, result, attempts, ref, bitwise,
+                   fit_s) -> dict:
+    from ray_tpu_torch.train import Checkpoint
+
+    if result.error is not None or result.metrics.get("step") != \
+            TRAINER["steps"]:
+        raise AssertionError(f"trainer: fit ended at "
+                             f"{result.metrics.get('step')}: {result.error}")
+    if len(attempts) != 2 or attempts[0].error is None:
+        raise AssertionError(f"trainer: {len(attempts)} attempts, the first "
+                             f"ending {attempts[0].error!r}")
+    hist = [a.metrics_history for a in attempts]
+    steps = [[m["step"] for m in h] for h in hist]
+    die, last = TRAINER["die_after"], TRAINER["steps"]
+    want_steps = [list(range(1, die + 1)), list(range(die, last + 1))]
+    log(f"trainer: attempt 0 ended {attempts[0].error.splitlines()[0]!r} "
+        f"after steps {steps[0]}; attempt 1 resumed from "
+        f"{os.path.basename(hist[1][0]['resumed_from'] or '-')} and ran "
+        f"steps {steps[1]}; fit {fit_s:.2f} s")
+    if steps != want_steps:
+        raise AssertionError(f"trainer: steps {steps}, expected {want_steps}")
+    if {m["device"] for h in hist for m in h} != {"cuda:0"}:
+        raise AssertionError("trainer: a worker did not run on cuda:0")
+    diffs = [abs(m["loss"] - ref[m["step"] - 1]) for h in hist for m in h]
+    equal = all(d == 0.0 for d in diffs)
+    log(f"trainer: losses through the gang {[[round(m['loss'], 6) for m in h] for h in hist]} "
+        f"against in-process {[round(x, 6) for x in ref]}: largest "
+        f"difference {max(diffs):.3e} (tolerance {TRAINER_LOSS_TOL}); two "
+        f"in-process runs equal to the bit: {bitwise}; gang equal to the "
+        f"bit: {equal}")
+    if max(diffs) > TRAINER_LOSS_TOL or (bitwise and not equal):
+        raise AssertionError(f"trainer: gang losses off the in-process run "
+                             f"by {max(diffs)} (bitwise reference {bitwise})")
+    n_layer = 12
+    launches = {}
+    for h in hist:
+        for i, m in enumerate(h):
+            want = {k: n_layer * (i + 1) for k in m["launches"]}
+            if m["launches"] != want or len(want) != 3:
+                raise AssertionError(f"trainer: step {m['step']} launches "
+                                     f"{m['launches']}, expected {want}")
+        for k, v in h[-1]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"trainer: launches in the worker, attempt 0 "
+        f"{hist[0][-1]['launches']}, attempt 1 {hist[1][-1]['launches']} "
+        f"(12 a step)")
+
+    # checkpoints: the two of lowest loss kept, the best returned and
+    # read back equal to what the worker saved
+    saved = [m for h in hist for m in h if "bytes" in m]
+    trial = os.path.join(result.path, "worker_0")
+    on_disk = sorted(n for n in os.listdir(trial) if n.startswith("ckpt_"))
+    lowest = sorted(saved, key=lambda m: m["loss"])[:2]
+    want_disk = sorted(f"ckpt_{m['step']:03d}" for m in lowest)
+    best = lowest[0]
+    for m in saved:
+        log(f"trainer: checkpoint of step {m['step']}: {m['bytes']} bytes, "
+            f"saved in {m['save_s']:.3f} s "
+            f"({m['bytes'] / m['save_s'] / 1e9:.2f} GB/s, written to the "
+            f"page cache) on {card}")
+    got_best = os.path.basename(result.checkpoint.path)
+    if on_disk != want_disk or got_best != f"ckpt_{best['step']:03d}":
+        raise AssertionError(f"trainer: checkpoints on disk {on_disk} "
+                             f"(expected {want_disk}), best {got_best}")
+    loaded = Checkpoint(result.checkpoint.path).load_state(
+        map_location=torch.device("cuda", 0))
+    same = state_digest(torch, loaded) == best["digest"]
+    log(f"trainer: kept {on_disk}, best {got_best} (loss "
+        f"{best['loss']:.6f}); its load_state equals what was saved: {same}")
+    del loaded
+    if not same:
+        raise AssertionError("trainer: the best checkpoint reads back "
+                             "other tensors than were saved")
+    with open(os.path.join(trial, "died_at")) as f:
+        died_at = float(f.read())
+    first = hist[1][0]
+    w = first["walls"]
+    back_s = first["at"] - died_at
+    back = {"to_process_start": w["proc_start"] - died_at,
+            "boot": w["loop"] - w["proc_start"],
+            "cuda_context": w["cuda"] - w["loop"],
+            "model": w["model"] - w["cuda"],
+            "checkpoint_read": w["state"] - w["model"],
+            "first_step": first["at"] - w["state"]}
+
+    # the cluster after fit: resources whole, workers dead, groups removed
+    deadline = time.monotonic() + 10
+    while (state.available_resources() != state.cluster_resources()
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    avail, total = state.available_resources(), state.cluster_resources()
+    workers = [a["state"] for a in state.list_actors()
+               if a.get("class_name") == "TrainWorker"]
+    groups = [p["state"] for p in node.gcs.placement_groups.values()]
+    log(f"trainer: after fit available {avail} = total {total}: "
+        f"{avail == total}; TrainWorkers {workers}; placement groups "
+        f"{groups}; from the worker's death to attempt 1's first step "
+        f"{back_s:.2f} s, by part (s; to_process_start: the death seen, the "
+        f"gang torn down, a new group and worker spawned; boot: the worker's "
+        f"start to the loop's, with import torch, the actor's start and the "
+        f"rendezvous): { {k: round(v, 3) for k, v in back.items()} } on "
+        f"{card}")
+    if avail != total or workers != ["DEAD", "DEAD"] or \
+            groups != ["REMOVED", "REMOVED"]:
+        raise AssertionError(f"trainer: after fit {avail} vs {total}, "
+                             f"workers {workers}, groups {groups}")
+    return {"launches": launches,
+            "gang_ms": [[m["step_ms"] for m in h] for h in hist],
+            "ckpt": [(m["step"], m["bytes"], m["save_s"]) for m in saved],
+            "death_to_step_s": back_s, "death_to_step_parts": back}
 
 
 # ------------------------------------------------------------------ main
@@ -4518,6 +4877,12 @@ def main() -> int:
     paths = (*paths, "llama_serve")
     sv = serve_phase(torch, card)
     launches["llama_serve"], eager["llama_serve"] = sv["launches"], sv["eager"]
+
+    # the Train path: Llama-125M trained through TorchTrainer in a
+    # num_gpus=1 gang, through a worker death and a resume; its counts
+    # reset in the worker just before its loop and read from its reports
+    train["llama_trainer"] = {"launches": trainer_phase(torch, card)[
+        "launches"]}
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")

@@ -898,7 +898,13 @@ class Raylet:
         """Try to acquire resources for spec; returns assignment or None."""
         res = spec["resources"]
         placement = spec.get("placement")
+        n_gpu = int(res.get("GPU", 0))
         with self._lock:
+            if n_gpu > len(self._free_gpus):
+                # a slot whose holder died goes back with the holder's
+                # death handling, which a placement group's return can
+                # precede: wait for it rather than run without a card
+                return None
             if placement is not None:
                 pg = self._bundles.get(placement["pg"], {})
                 bundle = pg.get(placement["bundle"])
@@ -912,7 +918,6 @@ class Raylet:
                     return None
                 sched.subtract(self.available, res)
             gpus: list[int] = []
-            n_gpu = int(res.get("GPU", 0))
             if n_gpu > 0:
                 gpus = self._free_gpus[:n_gpu]
                 del self._free_gpus[:n_gpu]

@@ -91,3 +91,7 @@ class ObjectStoreFullError(RayTpuError):
 
 class RuntimeEnvSetupError(RayTpuError):
     """Preparing the runtime environment for a task/actor failed."""
+
+
+class PlacementGroupUnavailableError(RayTpuError):
+    """Placement group could not be scheduled with current cluster resources."""

@@ -23,6 +23,33 @@ from ray_tpu_torch.serve.proxy_actor import _NO_GRPC
 
 _proxy: HTTPProxy | None = None
 
+# app name -> the ObjectRefs its bind arguments name. A replica reads them
+# by id (the controller holds only the init_blob bytes), so this client
+# keeps them counted as the driver's until the app is deleted or Serve
+# shuts down: a replica the controller restarts after the caller dropped
+# its own ref still finds its weights. An object still fate-shares with
+# its owner, the driver process, as in the reference.
+_bound_refs: dict[str, list] = {}
+
+
+def _refs_in(value, out: list) -> list:
+    """Every ObjectRef in ``value`` (bind arguments: nested lists, tuples,
+    dicts and applications), appended to ``out``."""
+    from ray_tpu_torch._private.object_ref import ObjectRef
+
+    if isinstance(value, ObjectRef):
+        out.append(value)
+    elif isinstance(value, Application):
+        for v in (*value.args, *value.kwargs.values()):
+            _refs_in(v, out)
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            _refs_in(v, out)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _refs_in(v, out)
+    return out
+
 
 # the raylet is the controller's supervisor: on worker death it restarts
 # the named actor IN PLACE (same actor id — cached handles keep working)
@@ -148,6 +175,7 @@ def run(
         controller.deploy_application.remote(name, uniq, ingress, route_prefix),
         timeout=60,
     )
+    _bound_refs[name] = _refs_in(target, [])
     _Router.reset_all()  # drop stale routing tables from a previous version
     if route_prefix is not None and _proxy is not None:
         _proxy.set_route(route_prefix, name, ingress)
@@ -181,6 +209,7 @@ def status() -> dict:
 def delete(name: str) -> None:
     controller = _get_or_create_controller()
     ray_tpu_torch.get(controller.delete_application.remote(name), timeout=60)
+    _bound_refs.pop(name, None)
     if _proxy is not None:
         _proxy.remove_routes_for_app(name)
     _Router.reset_all()
@@ -215,4 +244,5 @@ def shutdown() -> None:
     if _proxy is not None:
         _proxy.stop()
         _proxy = None
+    _bound_refs.clear()
     _Router.reset_all()

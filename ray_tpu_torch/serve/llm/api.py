@@ -24,7 +24,11 @@ to replay.
 The one addition to the reference: ``params=`` (on ``LLMDeployment`` and
 ``build_llm_app``) carries the port's weights — a state dict, or an
 ``ObjectRef`` of one that the replica reads from the object store — into
-the replica's engine; None draws the engine's seeded weights. Not here
+the replica's engine; None draws the engine's seeded weights. ``serve.run``
+holds such a ref for as long as the app is deployed (until
+``serve.delete`` or ``serve.shutdown``), so a replica restarted after the
+caller dropped its own ref still reads the weights; the object still
+fate-shares with the driver that put it, as in the reference. Not here
 yet (ROADMAP A9): a sharded replica (``mesh``, ``tp``, ``fsdp``) and the
 disaggregated prefill/decode handoff (``prefill=``, ``prefill_export``,
 ``kv_handoff`` payloads, ``stream_tokens(prefill_handle=)``,

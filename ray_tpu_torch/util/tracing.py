@@ -12,9 +12,8 @@ after ``init``, a worker) each span is also recorded as a ``SPAN`` task
 event, and a task whose submitter carried a trace context runs inside
 ``task_span``, so its spans parent under the submitter's.
 ``span_if_active`` opens a span only under an active trace.
-
-Reading whole traces back from the GCS (``get_trace``,
-``trace_to_chrome``) waits for the port's state API (``util/state.py``).
+``get_trace`` reads one trace's spans back from the GCS, and
+``trace_to_chrome`` renders them as ``state.timeline()`` renders tasks.
 
     from ray_tpu_torch.util import tracing
 
@@ -170,6 +169,18 @@ def task_span(spec: dict):
                 {"task_id": spec["task_id"].hex()}, kind="task")
 
 
+def get_trace(trace_id: str, limit: int | None = None) -> list[dict]:
+    """All recorded spans of one trace (driver-side, via the GCS). The
+    GCS applies the trace-id filter and the optional ``limit`` on the
+    newest spans itself."""
+    from ray_tpu_torch.util.state import _task_events
+
+    return [
+        e for e in _task_events(trace_id=trace_id, limit=limit)
+        if e.get("event") == "SPAN" and e.get("trace_id") == trace_id
+    ]
+
+
 def spans_to_chrome(spans: list[dict]) -> list[dict]:
     """Span dicts (the buffered shape) as chrome://tracing events."""
     events = []
@@ -190,3 +201,17 @@ def spans_to_chrome(spans: list[dict]) -> list[dict]:
             },
         })
     return events
+
+
+def trace_to_chrome(trace_id: str, filename: str | None = None,
+                    limit: int | None = None):
+    """Export one trace as chrome://tracing events (the same consumer as
+    state.timeline())."""
+    import json
+
+    events = spans_to_chrome(get_trace(trace_id, limit=limit))
+    if filename is None:
+        return events
+    with open(filename, "w") as f:
+        json.dump(events, f)
+    return None

@@ -71,6 +71,8 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch._private.node, ray_tpu_torch.actor\n"
         "import ray_tpu_torch.serve, ray_tpu_torch.serve.llm.api\n"
         "import ray_tpu_torch.serve.controller, ray_tpu_torch.serve.proxy\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.train.torch\n"
+        "import ray_tpu_torch.util.placement_group, ray_tpu_torch.util.state\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
