@@ -168,19 +168,35 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    removed; prints step ms through the gang and in process, each
    checkpoint's bytes and save seconds, and the seconds from the death
    to the resumed attempt's first step;
-16. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+16. trains from the port's Data (``data_phase``): 8 ``.npy`` files of 64
+   x 1025 int32 token ids from a seed, ``read_numpy`` -> ``map_batches``
+   (int64, ``tokens``; a task stage) -> ``random_shuffle`` (seeded), each
+   stage materialized and timed; then Llama-125M at full width and depth
+   through ``TorchTrainer(datasets={"train": ds})`` in a ``num_gpus=1``
+   gang, the dataset ``streaming_split`` into it and read by
+   ``iter_torch_batches`` (pinned staging, 2 batches ahead) onto the
+   card: 32 steps of 16 x 1024. Every sequence of the files once across
+   the gang's batches, each batch's digest that of the driver's
+   ``iter_batches`` of the same dataset, every loss against the same
+   batches trained in this process (TRAINER_LOSS_TOL; equal to the bit
+   reported), B1-B3 384 launches each, the batches on ``cuda:0``; prints
+   the stages' seconds, blocks and bytes, step ms through the gang and
+   in process, the wait in ``next()`` and the phase's seconds against
+   its 60 s target;
+17. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
    families' engine and training paths, the prefix path, the
    speculative path ``llama_spec``, the preemption path
    ``llama_preempt``, the observability path ``llama_obs``, the MoE
    path ``llama_moe``, the core path ``llama_core`` (the actor's
-   flight ring), the Serve path ``llama_serve`` (the replica's) and
-   the Train path ``llama_trainer`` (B1-B3, the gang worker's counts);
+   flight ring), the Serve path ``llama_serve`` (the replica's), the
+   Train path ``llama_trainer`` (B1-B3, the gang worker's counts) and
+   the Data path ``llama_data`` (B1-B3, its gang worker's counts);
    a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-17. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
+18. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
    training phase's first weights and batch ([16, 1025]), holds the loss
    through the CUDA kernels against the plain backend's (LOSS_TOL) and
    every gradient against the model in f32, no further from it than the
@@ -4730,6 +4746,310 @@ def trainer_checks(torch, card, node, state, result, attempts, ref, bitwise,
             "death_to_step_s": back_s, "death_to_step_parts": back}
 
 
+# ------------------------------------------------------------------- data
+
+# Llama-125M trained from a token dataset that the port's Data read, mapped
+# and shuffled, streaming_split into a num_gpus=1 gang and fed to the card
+# by iter_torch_batches: 8 files of 64 sequences of 1025 int32 ids drawn
+# from DATA_SEED below the vocabulary (512 sequences, 2,099,200 B), one
+# epoch of 32 steps of 16 x 1024
+DATA = dict(files=8, rows=64, seq_len=1024, vocab=32000, batch_size=16,
+            prefetch=2, map_batch_size=64)
+DATA_SEED = 300           # the token files
+DATA_SHUFFLE_SEED = 301   # random_shuffle
+DATA_BUDGET_S = 60.0      # the phase's target, printed beside its seconds
+
+
+def data_files(root) -> list:
+    """Write the token files into ``root``; -> each sequence's row hash,
+    file by file."""
+    import numpy as np
+
+    rng = np.random.default_rng(DATA_SEED)
+    hashes = []
+    for i in range(DATA["files"]):
+        tokens = rng.integers(0, DATA["vocab"], (DATA["rows"],
+                                                 DATA["seq_len"] + 1),
+                              dtype=np.int64).astype(np.int32)
+        np.save(os.path.join(root, f"tokens_{i:02d}.npy"), tokens)
+        hashes += row_hashes(tokens.astype(np.int64))
+    return hashes
+
+
+def row_hashes(tokens) -> list:
+    """One 8-byte BLAKE2b hex digest per sequence of an int64 [N, S + 1]
+    array."""
+    import hashlib
+
+    import numpy as np
+
+    tokens = np.ascontiguousarray(tokens, dtype=np.int64)
+    return [hashlib.blake2b(row.tobytes(), digest_size=8).hexdigest()
+            for row in tokens]
+
+
+def batch_digest(tokens) -> dict:
+    """An int64 [B, S + 1] batch on the host: its sum, the SHA-1 of its
+    bytes and its rows' hashes."""
+    import hashlib
+
+    import numpy as np
+
+    tokens = np.ascontiguousarray(tokens, dtype=np.int64)
+    return {"sum": int(tokens.sum()),
+            "sha1": hashlib.sha1(tokens.tobytes()).hexdigest(),
+            "rows": row_hashes(tokens)}
+
+
+def data_to_tokens(batch) -> dict:
+    """The pipeline's map_batches: int32 ids to int64, ``data`` renamed
+    ``tokens`` (the column ``train_step`` reads)."""
+    import numpy as np
+
+    return {"tokens": batch["data"].astype(np.int64)}
+
+
+def data_pipeline(rd, root) -> tuple:
+    """``read_numpy`` -> ``map_batches`` (a task stage) ->
+    ``random_shuffle(seed=DATA_SHUFFLE_SEED)``, each stage materialized
+    in turn, so each is timed alone and the next runs from its blocks.
+    -> (the shuffled dataset, seconds, blocks and bytes by stage)."""
+    stages = {}
+    ds = rd.read_numpy(root)
+    for name, make in (
+            ("read", lambda d: d),
+            ("map_batches", lambda d: d.map_batches(
+                data_to_tokens, batch_size=DATA["map_batch_size"])),
+            ("shuffle", lambda d: d.random_shuffle(seed=DATA_SHUFFLE_SEED))):
+        t = time.perf_counter()
+        ds = make(ds).materialize()
+        stages[name] = {"s": time.perf_counter() - t,
+                        "blocks": ds.num_blocks(), "bytes": ds.size_bytes()}
+    return ds, stages
+
+
+def data_loop(config):
+    """The data phase's ``train_loop_per_worker``: Llama-125M (weights
+    seed 0) trained on this rank's shard, read by ``iter_torch_batches``
+    onto the worker's card. Each step reports its loss, its ms, the ms
+    ``next()`` waited for the batch, the batch's device and digest
+    (``batch_digest``, read back after the step), and this process's
+    B1/B2/B3 launches since the loop began."""
+    import torch
+    from ray_tpu_torch.benchmarks.gpt_mfu import train_step
+    from ray_tpu_torch.ops import attention as at
+    from ray_tpu_torch.train import get_dataset_shard, report
+    from ray_tpu_torch.train.torch import get_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = get_device()
+    cfg, net, opt = trainer_model(torch, device)
+    batches = iter(get_dataset_shard("train").iter_torch_batches(
+        batch_size=DATA["batch_size"], device=device,
+        prefetch=DATA["prefetch"], drop_last=True))
+    at.reset_launches()
+    step = 0
+    while True:
+        t = time.perf_counter()
+        batch = next(batches, None)
+        wait_ms = 1e3 * (time.perf_counter() - t)
+        if batch is None:
+            break
+        step += 1
+        t = time.perf_counter()
+        loss = float(train_step(net, opt, batch))
+        step_ms = 1e3 * (time.perf_counter() - t)
+        tokens = batch["tokens"]
+        report({"step": step, "loss": loss, "step_ms": step_ms,
+                "wait_ms": wait_ms, "device": str(tokens.device),
+                "dtype": str(tokens.dtype), "shape": list(tokens.shape),
+                "digest": batch_digest(tokens.cpu().numpy()),
+                "launches": dict(at.LAUNCHES)})
+
+
+def data_reference(torch, batches) -> dict:
+    """The same batches through the same loop in this process, from the
+    same weight seed: losses and step ms; the state is freed before it
+    returns."""
+    from ray_tpu_torch.benchmarks.gpt_mfu import train_step
+
+    device = torch.device("cuda", 0)
+    cfg, net, opt = trainer_model(torch, device)
+    losses, ms = [], []
+    for b in batches:
+        tokens = torch.from_numpy(b.copy()).to(device)
+        t = time.perf_counter()
+        losses.append(float(train_step(net, opt, {"tokens": tokens})))
+        ms.append(1e3 * (time.perf_counter() - t))
+    del net, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms": ms}
+
+
+def data_feed_ms(torch, ds) -> dict:
+    """The gang's shard (``streaming_split(1)``: one 512-row block) read in
+    this process with no step between batches, ms a ``next()``: of
+    ``iter_batches`` (``host``: views of the block), of ``iter_batches``
+    with each batch copied on the host (``host_copy``: the block's pages
+    touched), of ``iter_torch_batches`` onto the card (``cuda``, prefetch
+    as the gang's), each on a fresh shard (a new block, none of its pages
+    touched by this process), and of ``iter_torch_batches`` again over
+    the ``cuda`` variant's shard (``cuda_again``: its mapping and pages
+    already in this process). Each: its first batch's, and the median and
+    max of the rest."""
+    kw = dict(batch_size=DATA["batch_size"], drop_last=True)
+
+    def host(shard):
+        return shard.iter_batches(**kw)
+
+    def host_copy(shard):
+        return ({k: v.copy() for k, v in b.items()}
+                for b in shard.iter_batches(**kw))
+
+    def cuda(shard):
+        return shard.iter_torch_batches(device=torch.device("cuda", 0),
+                                        prefetch=DATA["prefetch"], **kw)
+
+    out, shard = {}, None
+    for name, batches in (("host", host), ("host_copy", host_copy),
+                          ("cuda", cuda), ("cuda_again", cuda)):
+        if name != "cuda_again":
+            shard = ds.streaming_split(1)[0]
+        it, times = iter(batches(shard)), []
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            times.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        out[name] = {"first": times[0], "p50": statistics.median(times[1:]),
+                     "max": max(times[1:]), "batches": len(times)}
+    return out
+
+
+def data_phase(torch, card) -> dict:
+    """Train on the card from the port's Data: the token files read,
+    mapped and shuffled by the port's tasks (``data_pipeline``), then
+    ``TorchTrainer(data_loop, datasets={"train": ds})`` on
+    ``ScalingConfig(num_workers=1, use_gpu=True)``: ``streaming_split``
+    into the gang, ``iter_torch_batches`` onto the card, 32 steps of 16 x
+    1024. Checks: every sequence of the files once across the gang's
+    batches; each gang batch's digest that of the same dataset's
+    ``iter_batches(batch_size=16, drop_last=True)`` read here; every loss
+    within TRAINER_LOSS_TOL of this process's run of the same batches
+    from the same weights (equal to the bit reported); B1, B2 and B3 12 a
+    step (384 each); the batches int64 [16, 1025] on ``cuda:0``. Prints
+    the dataset's seconds, blocks and bytes by stage, step ms through the
+    gang against in process, the wait in ``next()`` (p50 and max) beside
+    the same shard read here with no step between batches
+    (``data_feed_ms``) and the phase's seconds against DATA_BUDGET_S. ->
+    the worker's launches."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="data_phase_")
+    files = os.path.join(root, "tokens")
+    os.makedirs(files)
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        file_rows = data_files(files)
+        ds, stages = data_pipeline(rd, files)
+        host = [b["tokens"] for b in ds.iter_batches(
+            batch_size=DATA["batch_size"], drop_last=True)]
+        want = [batch_digest(b) for b in host]
+        ref = data_reference(torch, host)
+        del host
+        feed = data_feed_ms(torch, ds)
+        t = time.perf_counter()
+        result = TorchTrainer(
+            data_loop,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="llama_data",
+                                 storage_path=os.path.join(root, "runs")),
+            datasets={"train": ds}).fit()
+        fit_s = time.perf_counter() - t
+        out = data_checks(card, result, stages, file_rows, want, ref, fit_s)
+        log("data: the shard read in this process with no step between "
+            "batches, ms a next(): " + "; ".join(
+                f"{name} p50 {f['p50']:.3f}, max {f['max']:.3f}, first "
+                f"{f['first']:.3f} ({f['batches']} batches)"
+                for name, f in feed.items()) + f" on {card}")
+        out["feed"] = feed
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"data phase: {seconds:.1f} s (target {DATA_BUDGET_S:.0f} s) on "
+        f"{card}")
+    return out
+
+
+def data_checks(card, result, stages, file_rows, want, ref, fit_s) -> dict:
+    log("data: stages " + "; ".join(
+        f"{name} {st['s']:.3f} s, {st['blocks']} blocks, {st['bytes']} B"
+        for name, st in stages.items()) + f" on {card}")
+    hist = result.metrics_history
+    steps = len(file_rows) // DATA["batch_size"]
+    if result.error is not None or [m["step"] for m in hist] != \
+            list(range(1, steps + 1)):
+        raise AssertionError(f"data: fit reported steps "
+                             f"{[m['step'] for m in hist]} (expected 1-"
+                             f"{steps}): {result.error}")
+    shapes = {(m["device"], m["dtype"], tuple(m["shape"])) for m in hist}
+    if shapes != {("cuda:0", "torch.int64",
+                   (DATA["batch_size"], DATA["seq_len"] + 1))}:
+        raise AssertionError(f"data: batches arrived as {shapes}")
+    seen = [r for m in hist for r in m["digest"]["rows"]]
+    once = (len(set(file_rows)) == len(file_rows)
+            and sorted(seen) == sorted(file_rows))
+    got = [m["digest"] for m in hist]
+    same = [g == w for g, w in zip(got, want)]
+    log(f"data: {len(seen)} sequences through the gang, each of the files' "
+        f"{len(file_rows)} once: {once}; batch digests (int64 sum, SHA-1) "
+        f"equal to the driver's iter_batches: {sum(same)} of {len(want)}")
+    if not once or len(want) != steps or not all(same):
+        raise AssertionError(f"data: sequences once {once}, digests equal "
+                             f"{sum(same)} of {len(want)}")
+    diffs = [abs(m["loss"] - r) for m, r in zip(hist, ref["losses"])]
+    equal = all(d == 0.0 for d in diffs)
+    log(f"data: losses through the gang {[round(m['loss'], 6) for m in hist]} "
+        f"against in-process {[round(x, 6) for x in ref['losses']]}: "
+        f"largest difference {max(diffs):.3e} (tolerance {TRAINER_LOSS_TOL}); "
+        f"equal to the bit: {equal}")
+    if max(diffs) > TRAINER_LOSS_TOL:
+        raise AssertionError(f"data: gang losses off the in-process run by "
+                             f"{max(diffs)}")
+    n_layer = 12
+    for i, m in enumerate(hist):
+        expect = {k: n_layer * (i + 1) for k in m["launches"]}
+        if m["launches"] != expect or len(expect) != 3:
+            raise AssertionError(f"data: step {m['step']} launches "
+                                 f"{m['launches']}, expected {expect}")
+    launches = hist[-1]["launches"]
+    gang = [m["step_ms"] for m in hist]
+    waits = [m["wait_ms"] for m in hist]
+    log(f"data: launches in the worker {launches} (12 a step); step ms "
+        f"through the gang {[round(x, 2) for x in gang]} (median after the "
+        f"first {statistics.median(gang[1:]):.2f}) against in-process "
+        f"{[round(x, 2) for x in ref['ms']]} (median after the first "
+        f"{statistics.median(ref['ms'][1:]):.2f}); fit {fit_s:.2f} s on "
+        f"{card}")
+    log(f"data: wait in next() for a batch p50 {statistics.median(waits):.3f}"
+        f" ms, max {max(waits):.3f} ms (first {waits[0]:.3f}) on {card}")
+    return {"launches": launches, "gang_ms": gang, "ref_ms": ref["ms"],
+            "wait_ms": waits, "stages": stages, "bitwise": equal}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -4883,6 +5203,12 @@ def main() -> int:
     # reset in the worker just before its loop and read from its reports
     train["llama_trainer"] = {"launches": trainer_phase(torch, card)[
         "launches"]}
+
+    # the Data path: Llama-125M trained in a num_gpus=1 gang from a token
+    # dataset read, mapped and shuffled by the port's tasks and fed by
+    # iter_torch_batches; its counts reset in the worker just before its
+    # loop and read from its reports
+    train["llama_data"] = {"launches": data_phase(torch, card)["launches"]}
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")

@@ -4,8 +4,10 @@ worker actors reserved through a placement group, joined in one
 report/checkpoint plumbing and gang restarts. ``DataParallelTrainer`` is
 the base trainer (the JAX package's ``JaxTrainer``), ``TorchTrainer`` its
 DDP flavour (``train.torch``: ``get_device``, ``prepare_model``,
-``prepare_data_loader``). Not ported yet: trainer datasets and
-``get_dataset_shard`` (ROADMAP A10, Data), the GBDT trainers."""
+``prepare_data_loader``). Trainer ``datasets=`` are the port's Data
+(``ray_tpu_torch.data``): each is ``streaming_split`` across the gang and
+read by a worker through ``get_dataset_shard``. Not ported yet: the GBDT
+trainers (ROADMAP A10)."""
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
 from ray_tpu_torch.train.config import (
     CheckpointConfig,

@@ -9,18 +9,14 @@ actor method (our actors execute methods serially, so the user train loop
 runs on a background thread and polling stays responsive).
 
 ``TrainContext`` has no ``mesh`` (the JAX package's device mesh; the gang
-here is one ``torch.distributed`` group), and ``get_dataset_shard`` raises
-until the port has its Data library (ROADMAP A10).
+here is one ``torch.distributed`` group). ``get_dataset_shard`` hands a
+worker its shard of a trainer dataset, a ``ray_tpu_torch.data``
+``DataIterator``.
 """
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
-
-_NO_DATA = ("trainer datasets and get_dataset_shard need the port's Data "
-            "library (ray_tpu_torch.data: iter_batches, streaming_split), "
-            "which is not ported yet (ROADMAP A10)")
-
 
 @dataclass
 class TrainContext:
@@ -32,6 +28,9 @@ class TrainContext:
     storage_path: str = ""
     trial_dir: str = ""
     experiment_config: dict = field(default_factory=dict)
+    # name -> this rank's DataIterator shard (reference: streaming_split
+    # outputs delivered to each train worker, data_parallel_trainer.py:59)
+    dataset_shards: dict = field(default_factory=dict)
 
     def get_world_size(self) -> int:
         return self.world_size
@@ -113,6 +112,13 @@ def get_context() -> TrainContext:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's shard of a trainer dataset (reference:
-    ray.train.get_dataset_shard). Not ported yet: raises."""
-    raise NotImplementedError(_NO_DATA)
+    """This worker's shard of a trainer dataset, as a DataIterator
+    (reference: ray.train.get_dataset_shard / session.get_dataset_shard —
+    the consumer side of Dataset.streaming_split)."""
+    shards = get_session().context.dataset_shards
+    if name not in shards:
+        raise KeyError(
+            f"no dataset shard named {name!r}; trainer datasets: "
+            f"{sorted(shards)}"
+        )
+    return shards[name]

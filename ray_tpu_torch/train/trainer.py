@@ -15,7 +15,9 @@ worker's loop raises, or when a worker dies outright (its actor gone: the
 trainer's next poll raises), or when the gang cannot be placed or meet;
 each failure tears the whole gang down, and the next attempt starts a new
 one. Rank 0's reports drive the results and the checkpoints, kept top-k by
-``CheckpointConfig`` across attempts.
+``CheckpointConfig`` across attempts. ``datasets`` (name -> a
+``ray_tpu_torch.data`` Dataset or DataIterator) reach each worker as its
+shard, through ``get_dataset_shard``; every attempt shards them again.
 """
 from __future__ import annotations
 
@@ -26,7 +28,6 @@ from typing import Callable, Optional
 
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
-from ray_tpu_torch.train.session import _NO_DATA
 from ray_tpu_torch.train.worker_group import WorkerGroup
 
 
@@ -53,12 +54,11 @@ class DataParallelTrainer:
         run_config: RunConfig | None = None,
         datasets: dict | None = None,
     ):
-        if datasets:
-            raise NotImplementedError(_NO_DATA)
         self.train_loop = train_loop_per_worker
         self.train_loop_config = train_loop_config
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
+        self.datasets = datasets or {}
 
     def fit(self) -> Result:
         storage = self.run_config.resolved_storage_path()
@@ -93,8 +93,9 @@ class DataParallelTrainer:
                 experiment_config={
                     "train_loop_config": self.train_loop_config,
                     "attempt": attempt,
-                    "datasets": [],
+                    "datasets": sorted(self.datasets),
                 },
+                datasets=self.datasets,
             )
             group.run(self.train_loop, self.train_loop_config)
             cursors = [0] * len(group.workers)

@@ -15,8 +15,11 @@ the core gives it. The gang always joins one ``torch.distributed`` group
 ``use_gpu=False``. A GPU gang on a host without CUDA fails at that
 rendezvous; there is no fallback to the CPU. The train loop travels by
 value (``_private/serialization.py``), so a loop defined in a script or a
-function reaches the workers as written. Trainer datasets are not ported
-yet (ROADMAP A10).
+function reaches the workers as written. Each trainer dataset is sharded
+across the gang (``Dataset.streaming_split(n, equal=True)``) at every
+attempt's start; the group holds the shards' block refs for the attempt,
+since the port's owner (the driver) frees an object when its own count
+reaches zero and a worker does not count as a borrower.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import ray_tpu_torch
 from ray_tpu_torch._private import task_spec as ts
 from ray_tpu_torch.exceptions import PlacementGroupUnavailableError
 from ray_tpu_torch.train.config import ScalingConfig
-from ray_tpu_torch.train.session import _NO_DATA, TrainContext, init_session
+from ray_tpu_torch.train.session import TrainContext, init_session
 from ray_tpu_torch.util.placement_group import (placement_group,
                                                 remove_placement_group)
 from ray_tpu_torch.util.scheduling_strategies import \
@@ -129,14 +132,14 @@ class WorkerGroup:
         self.storage_path = storage_path
         self.pg = None
         self.workers: list = []
+        # name -> the per-rank DataIterators of the running attempt
+        self._dataset_shards: dict[str, list] = {}
 
     def start(
         self,
         experiment_config: dict | None = None,
         datasets: dict | None = None,
     ) -> None:
-        if datasets:
-            raise NotImplementedError(_NO_DATA)
         n = self.scaling.num_workers
         bundles = [self.scaling.worker_resources() for _ in range(n)]
         self.pg = placement_group(bundles, strategy=self.scaling.placement_strategy)
@@ -149,6 +152,12 @@ class WorkerGroup:
         # the cards come from the bundle too: a worker asks its bundle for
         # them, so the core gives it their CUDA_VISIBLE_DEVICES slots
         num_gpus = int(bundles[0].get("GPU", 0))
+        # shard each dataset across the gang (reference: streaming_split,
+        # python/ray/data/dataset.py:1149; delivered per-worker like
+        # data_parallel_trainer.py:59's dataset ingestion), and keep the
+        # shards' refs alive for the whole run on the group
+        self._dataset_shards = {name: _shard_dataset(ds, n)
+                                for name, ds in (datasets or {}).items()}
         self.workers = []
         for rank in range(n):
             ctx = dict(
@@ -159,6 +168,8 @@ class WorkerGroup:
                 storage_path=self.storage_path,
                 trial_dir=f"{self.storage_path}/worker_{rank}",
                 experiment_config=experiment_config or {},
+                dataset_shards={name: shards[rank] for name, shards
+                                in self._dataset_shards.items()},
             )
             w = TrainWorker.options(
                 num_cpus=0,  # resources come from the bundle
@@ -213,6 +224,23 @@ class WorkerGroup:
             except Exception:
                 pass
         self.workers = []
+        self._dataset_shards = {}
+
+
+def _shard_dataset(ds, n: int) -> list:
+    """Dataset -> n per-worker DataIterators; a DataIterator is replicated
+    (the caller pre-sharded); anything else is rejected."""
+    from ray_tpu_torch.data.dataset import Dataset
+    from ray_tpu_torch.data.iterator import DataIterator
+
+    if isinstance(ds, Dataset):
+        return ds.streaming_split(n, equal=True)
+    if isinstance(ds, DataIterator):
+        return [ds] * n
+    raise TypeError(
+        f"trainer datasets must be ray_tpu.data Datasets or DataIterators, "
+        f"got {type(ds).__name__}"
+    )
 
 
 def _free_port() -> int:

@@ -2,7 +2,8 @@
 neither JAX nor anything of ``ray_tpu``, nor ``prometheus_client``,
 ``msgpack``, ``cloudpickle``, ``psutil``, ``aiohttp``, ``grpc`` or
 ``requests`` (the card's machine has none of them; the core carries its
-own wire and by-value pickler, Serve its own HTTP proxy); entry points
+own wire and by-value pickler, Serve its own HTTP proxy), nor ``pyarrow``
+or ``pandas`` (Data keeps numpy blocks), at module level; entry points
 never fall back to the CPU on their own, and what the port has not got
 (the gRPC ingress, sharded replicas, the disaggregated handoff) raises;
 a kernel wrapper refuses a CPU tensor; the serving path reads one
@@ -54,6 +55,53 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert not bad, bad
 
 
+# the card's machine has neither: no module of the port may import them
+# where it is loaded (an import inside a function runs only when called)
+ARROW = ("pyarrow", "pandas")
+
+
+def _module_level_imports(tree):
+    """The modules a file imports when it is loaded: its top-level
+    statements, and those under top-level ``if`` / ``try`` blocks."""
+    body = list(tree.body)
+    while body:
+        node = body.pop(0)
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try)):
+            body += node.body + node.orelse + getattr(node, "finalbody", [])
+            for h in getattr(node, "handlers", []):
+                body += h.body
+
+
+def test_port_imports_no_arrow_or_pandas_at_module_level():
+    files = _port_files()
+    assert any(f.endswith(os.path.join("data", "block.py")) for f in files)
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for name in _module_level_imports(tree):
+            if name.split(".")[0] in ARROW:
+                bad.append((os.path.relpath(path, ROOT), name))
+    assert not bad, bad
+
+
+def test_importing_the_ports_data_loads_no_arrow_or_pandas():
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.data, ray_tpu_torch.data.tfrecord\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.train.worker_group\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{ARROW + FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
@@ -73,6 +121,7 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch.serve.controller, ray_tpu_torch.serve.proxy\n"
         "import ray_tpu_torch.train, ray_tpu_torch.train.torch\n"
         "import ray_tpu_torch.util.placement_group, ray_tpu_torch.util.state\n"
+        "import ray_tpu_torch.data\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

@@ -16,8 +16,9 @@ against the JAX package's, one cluster per package for the module.
 - ``CheckpointManager`` keeps the JAX manager's set for scripted metric
   sequences; ``write_metadata`` is byte-equal.
 - The port alone: the torch state round trip, whole GPUs only, a GPU gang
-  without CUDA fails at its rendezvous (no fallback to the CPU),
-  datasets raise, and a gang worker loads no JAX, ``ray_tpu``,
+  without CUDA fails at its rendezvous (no fallback to the CPU), a
+  dataset of another type raises the JAX ``TypeError``, and a gang
+  worker loads no JAX, ``ray_tpu``,
   cloudpickle or msgpack."""
 from __future__ import annotations
 
@@ -438,13 +439,27 @@ def test_configs(monkeypatch, tmp_path):
 
 
 def test_data_is_not_ported_yet(torch_rt):
+    """Trainer datasets are ported now (``ray_tpu_torch.data``; the name
+    is the old pin's). What stays refused is what the JAX package
+    refuses: a dataset that is neither a Dataset nor a DataIterator
+    fails the attempt with the JAX package's ``TypeError``, and a shard
+    name the trainer was not given raises its ``KeyError``."""
+    from ray_tpu.train.worker_group import _shard_dataset as jax_shard
+
     from ray_tpu_torch.train import DataParallelTrainer, get_dataset_shard
     from ray_tpu_torch.train.session import TrainContext, init_session
+    from ray_tpu_torch.train.worker_group import _shard_dataset
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        DataParallelTrainer(lambda: None, datasets={"train": [1]})
+    trainer = DataParallelTrainer(lambda: None, datasets={"train": [1]})
+    assert trainer.datasets == {"train": [1]}
+    with pytest.raises(TypeError) as theirs:
+        jax_shard([1], 1)
+    with pytest.raises(TypeError, match="must be ray_tpu.data Datasets") \
+            as mine:
+        _shard_dataset([1], 1)
+    assert str(mine.value) == str(theirs.value)
     init_session(TrainContext())
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(KeyError, match="no dataset shard named 'train'"):
         get_dataset_shard("train")
 
 
