@@ -183,7 +183,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    the stages' seconds, blocks and bytes, step ms through the gang and
    in process, the wait in ``next()`` and the phase's seconds against
    its 60 s target;
-17. prints the kernels' JSON line (a kernel's ``launches``: the sum over
+17. searches learning rates through the port's Tune (``tune_phase``),
+   every trial a ``num_gpus=1`` actor of ``TuneController`` training
+   Llama-125M at full width and depth (16 x 1024, the trainer phase's
+   model and step): ASHA over a grid of 3 learning rates (rungs and
+   checkpoints at steps 2 and 4, max_t 6), the second trial killing its
+   process after its step-3 report and restarted from its step-2
+   checkpoint (``max_failures=1``); the best checkpoint evaluated on 4
+   held-out batches by an ``ActorPool`` of one ``num_gpus=1`` actor; a
+   seeded PBT pair (perturbation every 2 of 4 iterations) whose second
+   trial exploits the first's checkpoint; a 3-step workflow whose middle
+   step fails once, resumed from its frontier. Every loss against this
+   process's run of the same learning rate and steps (after a restart or
+   an exploit from the checkpoint read), ASHA's and PBT's decisions those
+   of fresh schedulers fed the same results, the exploit in the policy
+   log, one process on the card at a time by their walls, each on
+   ``cuda:0`` under ``CUDA_VISIBLE_DEVICES`` "0", B1-B3 12 a step in each
+   trial and B1 12 a forward in the evaluator; prints each actor's start
+   by part, checkpoint bytes and save and read seconds, per trial its
+   steps, actor-seconds and the steps ASHA's stops saved, and the phase's
+   seconds against its 200 s target;
+18. prints the kernels' JSON line (a kernel's ``launches``: the sum over
    the paths, each counted alone, ``launches_by_path``: the two
    families' engine and training paths, the prefix path, the
    speculative path ``llama_spec``, the preemption path
@@ -191,12 +211,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    path ``llama_moe``, the core path ``llama_core`` (the actor's
    flight ring), the Serve path ``llama_serve`` (the replica's), the
    Train path ``llama_trainer`` (B1-B3, the gang worker's counts) and
-   the Data path ``llama_data`` (B1-B3, its gang worker's counts);
+   the Data path ``llama_data`` (B1-B3, its gang worker's counts) and
+   the Tune path ``llama_tune`` (B1-B3, the trials' and the evaluator's
+   counts);
    a paged
    kernel's on the device in its engine's counted pass, from the trace;
    ``eager_launches``: its wrapper's count in that pass) and the card's
    line;
-18. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
+19. for each model (GPT-2 125M, Llama-125M, Llama-125M-MoE), on its
    training phase's first weights and batch ([16, 1025]), holds the loss
    through the CUDA kernels against the plain backend's (LOSS_TOL) and
    every gradient against the model in f32, no further from it than the
@@ -4440,12 +4462,14 @@ def trainer_model(torch, device):
     return cfg, net, make_optimizer(net)
 
 
-def trainer_step(torch, cfg, net, opt, step, device) -> float:
-    """Step ``step`` (from 1) on its own batch; -> its loss, synchronised."""
+def trainer_step(torch, cfg, net, opt, step, device,
+                 seed=TRAINER_SEED) -> float:
+    """Step ``step`` (from 1) on its own batch, of seed ``seed + step``;
+    -> its loss, synchronised."""
     from ray_tpu_torch.benchmarks.gpt_mfu import bench_batch, train_step
 
     batch = bench_batch(cfg, TRAINER["batch_size"], TRAINER["seq_len"],
-                        TRAINER_SEED + step, device)
+                        seed + step, device)
     return float(train_step(net, opt, batch))
 
 
@@ -5050,6 +5074,676 @@ def data_checks(card, result, stages, file_rows, want, ref, fit_s) -> dict:
             "wait_ms": waits, "stages": stages, "bitwise": equal}
 
 
+# ------------------------------------------------------------------- tune
+
+# Llama-125M learning-rate searches through the port's Tune, every trial a
+# num_gpus=1 actor that trains the trainer phase's model and step on
+# batches of its own seed (16 x 1024 from TUNE_SEED + step). ASHA: a grid
+# of 3 learning rates, rungs at steps 2 and 4 (the checkpoints), max_t 6;
+# the trial of ``die_lr`` kills its process after its step-3 report on its
+# first attempt. PBT: a population of 2 (the high lr first), 4 iterations
+# each, checkpoints and the perturbation boundary every 2. Then 4 held-out
+# batches through an ActorPool of one num_gpus=1 actor, and a 3-step
+# workflow whose middle step fails once
+TUNE = dict(asha_lrs=(1e-5, 3e-4, 1e-4), asha_steps=6, grace=2, rf=2,
+            die_lr=3e-4, die_after=3, checkpoint_at=(2, 4),
+            pbt_lrs=(3e-4, 1e-5), pbt_iterations=4, pbt_interval=2,
+            pbt_mutations=(1e-5, 3e-5, 1e-4, 3e-4, 1e-3), pbt_seed=7,
+            eval_batches=4)
+TUNE_SEED = 400           # step s trains on the batch of seed TUNE_SEED + s
+TUNE_EVAL_SEED = 500      # held-out batch i: seed TUNE_EVAL_SEED + i
+TUNE_BUDGET_S = 200.0     # the phase's target, printed beside its seconds
+
+
+def set_lr(opt, lr) -> None:
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+def eval_loss(torch, cfg, net, i, device) -> float:
+    """The forward-only loss of held-out batch ``i``."""
+    from ray_tpu_torch.benchmarks.gpt_mfu import bench_batch
+
+    batch = bench_batch(cfg, TRAINER["batch_size"], TRAINER["seq_len"],
+                        TUNE_EVAL_SEED + i, device)
+    with torch.no_grad():
+        return float(net.loss(batch))
+
+
+def tune_trainable(config):
+    """The phase's trainable. It builds Llama-125M on its slot's card, loads
+    ``tune.get_checkpoint()`` where there is one (model, optimizer and
+    step: its own after a death, a donor's after a PBT exploit), sets
+    ``config["lr"]`` on the optimizer and trains the steps after the
+    checkpoint's: up to step ``asha_steps`` (``budget`` "steps", reported
+    as the training iteration) or up to the session's iteration
+    ``pbt_iterations`` (``budget`` "iterations"). Every step reports its
+    loss, its ms, this process's B1/B2/B3 launches since its loop began,
+    its device and ``CUDA_VISIBLE_DEVICES``, and the wall times of this
+    process's start, the loop's, its CUDA context's, the model's build
+    and the checkpoint's read; at steps (or iterations) ``checkpoint_at``
+    it saves its state straight into the directory the session keeps
+    checkpoints in, so the session copies nothing. The ``die_lr`` trial's
+    first attempt kills its process once the controller has taken its
+    step-``die_after`` report."""
+    import torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.ops import attention as at
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.tune.session import get_session
+
+    walls = {"proc_start": proc_start_wall(), "loop": time.time()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    session = get_session()
+    device = torch.device("cuda", 0)
+    torch.zeros(1, device=device)  # the process's CUDA context
+    torch.cuda.synchronize(device)
+    walls["cuda"] = time.time()
+    cfg, net, opt = trainer_model(torch, device)
+    walls["model"] = time.time()
+    restored, step = tune.get_checkpoint(), 0
+    if restored is not None:
+        state = restored.load_state(map_location=device)
+        net.load_state_dict(state["model"])
+        opt.load_state_dict(state["optimizer"])
+        step = state["step"]
+        del state
+    set_lr(opt, config["lr"])
+    walls["state"] = time.time()
+    by_steps = config["budget"] == "steps"
+    dies = (by_steps and restored is None
+            and config["lr"] == TUNE["die_lr"])
+    at.reset_launches()
+    ran = 0
+    while True:
+        # the iteration the session gives the next report
+        iteration = session._iteration + 1
+        if (step >= TUNE["asha_steps"] if by_steps
+                else iteration > TUNE["pbt_iterations"]):
+            break
+        step += 1
+        t = time.perf_counter()
+        loss = trainer_step(torch, cfg, net, opt, step, device, TUNE_SEED)
+        ran += 1
+        metrics = {"loss": loss, "step": step, "lr": config["lr"],
+                   "step_ms": 1e3 * (time.perf_counter() - t),
+                   "launches": dict(at.LAUNCHES), "ran": ran,
+                   "at": time.time(), "pid": os.getpid(),
+                   "device": str(device),
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "restored": restored.path if restored else None,
+                   "walls": walls}
+        if by_steps:
+            metrics["training_iteration"] = step
+        ckpt = None
+        if (step if by_steps else iteration) in TUNE["checkpoint_at"]:
+            state = {"model": net.state_dict(),
+                     "optimizer": opt.state_dict(), "step": step}
+            t = time.perf_counter()
+            ckpt = Checkpoint.from_state(os.path.join(
+                session.trial_dir, f"checkpoint_{iteration:06d}"), state)
+            metrics["save_s"] = time.perf_counter() - t
+            metrics["bytes"] = os.path.getsize(
+                os.path.join(ckpt.path, "state.pt"))
+        tune.report(metrics, checkpoint=ckpt)
+        if dies and step == TUNE["die_after"]:
+            deadline = time.monotonic() + 60
+            while session.consumed < ran and time.monotonic() < deadline:
+                time.sleep(0.01)
+            os._exit(1)
+
+
+class TuneEvaluator:
+    """The evaluation pool's actor: Llama-125M with the model state of a
+    checkpoint on its slot's card; ``loss(i)`` is held-out batch ``i``'s
+    forward-only loss, B1 launching once a layer."""
+
+    def __init__(self, path):
+        import torch
+        from ray_tpu_torch.ops import attention as at
+        from ray_tpu_torch.train import Checkpoint
+
+        self.walls = {"proc_start": proc_start_wall(), "loop": time.time()}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.device = torch.device("cuda", 0)
+        torch.zeros(1, device=self.device)
+        torch.cuda.synchronize(self.device)
+        self.walls["cuda"] = time.time()
+        self.cfg, self.net, _ = trainer_model(torch, self.device)
+        self.walls["model"] = time.time()
+        state = Checkpoint(path).load_state(map_location=self.device)
+        self.net.load_state_dict(state["model"])
+        del state
+        self.walls["state"] = time.time()
+        self.visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        at.reset_launches()
+
+    def loss(self, i):
+        import torch
+
+        out = eval_loss(torch, self.cfg, self.net, i, self.device)
+        self.walls["last"] = time.time()
+        return out
+
+    def report(self):
+        from ray_tpu_torch.ops import attention as at
+
+        return {"launches": dict(at.LAUNCHES), "walls": self.walls,
+                "device": str(self.device), "visible": self.visible,
+                "pid": os.getpid()}
+
+
+def recording_scheduler(base):
+    """``base`` (a port scheduler class) that keeps every call of
+    ``on_trial_result`` in ``stream``: the trial's id, config, checkpoint
+    and iteration before it, the result, the decision, and after an
+    exploit the trial's new config and restore path."""
+
+    class Recording(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.stream = []
+
+        def on_trial_result(self, trial, result):
+            seen = {"trial_id": trial.trial_id, "config": dict(trial.config),
+                    "checkpoint_path": trial.checkpoint_path,
+                    "iteration": trial.iteration, "result": dict(result)}
+            decision = super().on_trial_result(trial, result)
+            seen.update(decision=decision, after=dict(trial.config),
+                        restore_path=trial.restore_path)
+            self.stream.append(seen)
+            return decision
+
+    return Recording
+
+
+def replay_decisions(fresh, stream, tag) -> int:
+    """Feed ``stream`` to the fresh scheduler ``fresh`` over trials of its
+    own; every decision, and every exploit's config and restore path,
+    must equal the recorded ones. -> the exploits."""
+    from ray_tpu_torch.tune.trial import Trial
+
+    trials, exploits = {}, 0
+    for i, seen in enumerate(stream):
+        t = trials.setdefault(seen["trial_id"], Trial(
+            config={}, experiment_dir="", trial_id=seen["trial_id"]))
+        t.config = dict(seen["config"])
+        t.checkpoint_path = seen["checkpoint_path"]
+        t.iteration = seen["iteration"]
+        t.restore_path = None
+        decision = fresh.on_trial_result(t, dict(seen["result"]))
+        got = (decision, t.config,
+               t.restore_path if decision == "EXPLOIT" else None)
+        want = (seen["decision"], seen["after"],
+                seen["restore_path"] if decision == "EXPLOIT" else None)
+        if got != want:
+            raise AssertionError(f"tune[{tag}]: result {i} of trial "
+                                 f"{seen['trial_id']}: the fresh scheduler "
+                                 f"gives {got}, the run gave {want}")
+        exploits += decision == "EXPLOIT"
+    return exploits
+
+
+class TuneReference:
+    """The trials' runs in this process, on one Llama-125M and its seed-0
+    start: ``run(lr, steps, state)`` trains the steps after ``state``'s
+    (the seed-0 weights and a fresh AdamW when None) at ``lr``."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.device = torch.device("cuda", 0)
+        self.cfg, self.net, _ = trainer_model(torch, self.device)
+        self.start = {k: v.clone() for k, v in self.net.state_dict().items()}
+
+    def run(self, lr, steps, state=None) -> list:
+        from ray_tpu_torch.benchmarks.gpt_mfu import make_optimizer
+
+        torch = self.torch
+        opt = make_optimizer(self.net)
+        first = 0
+        if state is None:
+            self.net.load_state_dict(self.start)
+        else:
+            self.net.load_state_dict(state["model"])
+            opt.load_state_dict(state["optimizer"])
+            first = state["step"]
+        set_lr(opt, lr)
+        out = [trainer_step(torch, self.cfg, self.net, opt, s, self.device,
+                            TUNE_SEED)
+               for s in range(first + 1, first + steps + 1)]
+        del opt
+        return out
+
+    def evaluate(self, state) -> list:
+        self.net.load_state_dict(state["model"])
+        return [eval_loss(self.torch, self.cfg, self.net, i, self.device)
+                for i in range(TUNE["eval_batches"])]
+
+    def close(self):
+        del self.net, self.start
+        self.torch.cuda.empty_cache()
+
+
+def attempts_of(trial) -> list:
+    """The trial's reports grouped by the process that made them."""
+    out = []
+    for m in trial.results:
+        if not out or out[-1][0]["pid"] != m["pid"]:
+            out.append([])
+        out[-1].append(m)
+    return out
+
+
+def tune_trial_checks(trials, tag, want_loss) -> dict:
+    """Checks common to every trial of a part: each report on cuda:0
+    under CUDA_VISIBLE_DEVICES "0"; B1-B3 12 x the steps its process ran
+    so far; its loss within TRAINER_LOSS_TOL of ``want_loss(trial,
+    attempt, report)``. -> the part's launches, largest gap and whether
+    every loss was equal to the bit."""
+    launches = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    gaps = []
+    for trial in trials:
+        for a, reports in enumerate(attempts_of(trial)):
+            for m in reports:
+                if (m["device"], m["visible"]) != ("cuda:0", "0"):
+                    raise AssertionError(
+                        f"tune[{tag}]: trial {trial.trial_id} ran on "
+                        f"{m['device']} under CUDA_VISIBLE_DEVICES "
+                        f"{m['visible']!r}")
+                want = {k: 12 * m["ran"] for k in launches}
+                if m["launches"] != want:
+                    raise AssertionError(
+                        f"tune[{tag}]: trial {trial.trial_id} step "
+                        f"{m['step']} launches {m['launches']}, expected "
+                        f"{want}")
+                gaps.append(abs(m["loss"] - want_loss(trial, a, m)))
+            for k in launches:
+                launches[k] += reports[-1]["launches"][k]
+    if max(gaps) > TRAINER_LOSS_TOL:
+        raise AssertionError(f"tune[{tag}]: a trial's loss is off the "
+                             f"in-process run by {max(gaps)}")
+    return {"launches": launches, "gap": max(gaps),
+            "bitwise": all(g == 0.0 for g in gaps)}
+
+
+def log_trials(tag, trials, card, steps_max=None) -> None:
+    """Per trial: its steps by attempt, each attempt's start by part, its
+    checkpoints' bytes and save seconds, its actor-seconds and (ASHA)
+    the steps its stop saved."""
+    for trial in trials:
+        att = attempts_of(trial)
+        actor_s = sum(r[-1]["at"] - r[0]["walls"]["proc_start"] for r in att)
+        starts = []
+        for r in att:
+            w = r[0]["walls"]
+            starts.append({"boot": round(w["loop"] - w["proc_start"], 3),
+                           "cuda": round(w["cuda"] - w["loop"], 3),
+                           "model": round(w["model"] - w["cuda"], 3),
+                           "checkpoint_read": round(w["state"] - w["model"],
+                                                    3)})
+        ckpts = [(m["step"], m["bytes"], round(m["save_s"], 3))
+                 for r in att for m in r if "bytes" in m]
+        saved = ("" if steps_max is None else
+                 f", steps saved by its stop {steps_max - att[-1][-1]['step']}")
+        log(f"tune[{tag}]: trial {trial.trial_id} lr {trial.config['lr']:g} "
+            f"{trial.status}: steps by attempt "
+            f"{[[m['step'] for m in r] for r in att]}, actor-seconds "
+            f"{actor_s:.2f}{saved}; starts (s) {starts}; checkpoints (step, "
+            f"bytes, save s) {ckpts} on {card}")
+
+
+def no_overlap(intervals, tag) -> None:
+    """``intervals``: (start, end, what) of every process that held the
+    card; none may start before the one before it ended."""
+    intervals = sorted(intervals)
+    for (s0, e0, w0), (s1, e1, w1) in zip(intervals, intervals[1:]):
+        if s1 < e0:
+            raise AssertionError(f"tune[{tag}]: {w1} took the card at "
+                                 f"{s1:.3f}, before {w0} let it go at "
+                                 f"{e0:.3f}")
+
+
+def card_intervals(trials) -> list:
+    return [(r[0]["walls"]["cuda"], r[-1]["at"],
+             f"trial {t.trial_id} pid {r[0]['pid']}")
+            for t in trials for r in attempts_of(t)]
+
+
+def tune_asha(torch, card, rt, root, ref) -> dict:
+    """The ASHA part. -> its trials, checks and the best checkpoint."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.tune.tune_controller import TuneController
+
+    lrs = TUNE["asha_lrs"]
+    want = {lr: ref.run(lr, TUNE["asha_steps"]) for lr in lrs}
+    log("tune[asha]: in-process losses by lr (steps 1-"
+        f"{TUNE['asha_steps']}): " + "; ".join(
+            f"{lr:g} {[round(x, 6) for x in want[lr]]}" for lr in lrs))
+    sched = recording_scheduler(tune.ASHAScheduler)(
+        max_t=TUNE["asha_steps"], grace_period=TUNE["grace"],
+        reduction_factor=TUNE["rf"])
+    ctl = TuneController(
+        tune_trainable,
+        searcher=tune.BasicVariantGenerator(
+            {"lr": tune.grid_search(list(lrs)), "budget": "steps"}),
+        scheduler=sched, metric="loss", mode="min",
+        experiment_dir=os.path.join(root, "asha"),
+        resources_per_trial={"CPU": 1, "GPU": 1}, max_failures=1)
+    if ctl.max_concurrent != 1:
+        raise AssertionError(f"tune[asha]: {ctl.max_concurrent} trials at "
+                             f"once on one card")
+    t = time.perf_counter()
+    trials = ctl.run()
+    run_s = time.perf_counter() - t
+    grid = tune.ResultGrid(trials, "loss", "min")
+    if grid.errors or [tr.config["lr"] for tr in trials] != list(lrs):
+        raise AssertionError(f"tune[asha]: trials {[tr.config for tr in trials]}"
+                             f", errors {grid.errors}")
+    fresh = tune.ASHAScheduler(max_t=TUNE["asha_steps"],
+                               grace_period=TUNE["grace"],
+                               reduction_factor=TUNE["rf"])
+    fresh.set_search_properties("loss", "min")
+    replay_decisions(fresh, sched.stream, "asha")
+    # each trial's steps: 1.. its stop (or max_t), the die_lr trial's
+    # first attempt ending at die_after and its second resuming after the
+    # step-2 checkpoint
+    stops = {}
+    for seen in sched.stream:
+        if seen["decision"] == "STOP":
+            stops.setdefault(seen["trial_id"], seen["result"]["step"])
+    for tr in trials:
+        att = attempts_of(tr)
+        got = [[m["step"] for m in r] for r in att]
+        last = stops.get(tr.trial_id)
+        if tr.config["lr"] == TUNE["die_lr"]:
+            first = list(range(1, TUNE["die_after"] + 1))
+            resumed = TUNE["checkpoint_at"][0] + 1
+            expect = [first, list(range(resumed, last + 1))]
+            read = os.path.join(tr.trial_dir, "checkpoint_000002")
+            if len(att) != 2 or att[1][0]["restored"] != read:
+                raise AssertionError(f"tune[asha]: the restart of trial lr "
+                                     f"{tr.config['lr']} read "
+                                     f"{att[-1][0]['restored']}, not {read}")
+        else:
+            expect = [list(range(1, last + 1))]
+        if last is None or got != expect or tr.status != "TERMINATED":
+            raise AssertionError(f"tune[asha]: trial lr {tr.config['lr']} "
+                                 f"{tr.status} ran steps {got}, its stop at "
+                                 f"{last}: expected {expect}")
+    out = tune_trial_checks(trials, "asha",
+                            lambda tr, a, m: want[tr.config["lr"]][
+                                m["step"] - 1])
+    no_overlap(card_intervals(trials), "asha")
+    best = grid.get_best_result()
+    log(f"tune[asha]: {len(trials)} trials in {run_s:.2f} s, stops at steps "
+        f"{ {tr.config['lr']: stops[tr.trial_id] for tr in trials} }, the "
+        f"decisions those of a fresh ASHAScheduler fed the same "
+        f"{len(sched.stream)} results; losses against in-process: largest "
+        f"difference {out['gap']:.3e} (tolerance {TRAINER_LOSS_TOL}), equal "
+        f"to the bit: {out['bitwise']}; best lr {best.config['lr']:g} (loss "
+        f"{best.metrics['loss']:.6f}), checkpoint "
+        f"{os.path.basename(best.checkpoint.path)}")
+    log_trials("asha", trials, card, TUNE["asha_steps"])
+    out.update(trials=trials, best=best, run_s=run_s, want=want)
+    return out
+
+
+def tune_eval(torch, card, rt, best, ref) -> dict:
+    """The evaluation part: an ActorPool of one num_gpus=1 TuneEvaluator
+    on the best checkpoint, mapping the held-out batches."""
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.util.actor_pool import ActorPool
+
+    t = time.perf_counter()
+    state = Checkpoint(best.checkpoint.path).load_state(
+        map_location=torch.device("cuda", 0))
+    load_s = time.perf_counter() - t
+    want = ref.evaluate(state)
+    del state
+    actor = rt.remote(num_gpus=1)(TuneEvaluator).remote(best.checkpoint.path)
+    pool = ActorPool([actor])
+    t = time.perf_counter()
+    got = list(pool.map(lambda a, i: a.loss.remote(i),
+                        range(TUNE["eval_batches"])))
+    map_s = time.perf_counter() - t
+    rep = rt.get(actor.report.remote(), timeout=60)
+    rt.kill(actor)
+    gaps = [abs(g - w) for g, w in zip(got, want)]
+    w = rep["walls"]
+    expect = {"flash_fwd": 12 * TUNE["eval_batches"], "flash_bwd_dkv": 0,
+              "flash_bwd_dq": 0}
+    log(f"tune[eval]: {TUNE['eval_batches']} held-out losses through the "
+        f"pool {[round(x, 6) for x in got]} against in-process "
+        f"{[round(x, 6) for x in want]}: largest difference {max(gaps):.3e}"
+        f" (tolerance {TRAINER_LOSS_TOL}); map {map_s:.2f} s (with the "
+        f"actor's start); the actor's start (s) boot "
+        f"{w['loop'] - w['proc_start']:.3f}, cuda {w['cuda'] - w['loop']:.3f},"
+        f" model {w['model'] - w['cuda']:.3f}, checkpoint read "
+        f"{w['state'] - w['model']:.3f} (in this process {load_s:.3f}); "
+        f"launches {rep['launches']} on {card}")
+    if len(got) != TUNE["eval_batches"] or max(gaps) > TRAINER_LOSS_TOL:
+        raise AssertionError(f"tune[eval]: pool losses {got}, in-process "
+                             f"{want}")
+    if (rep["device"], rep["visible"]) != ("cuda:0", "0") or \
+            rep["launches"] != expect:
+        raise AssertionError(f"tune[eval]: the actor ran on {rep['device']}"
+                             f" ({rep['visible']!r}) with {rep['launches']}")
+    return {"launches": rep["launches"],
+            "interval": (w["cuda"], w["last"], f"evaluator pid {rep['pid']}")}
+
+
+def tune_pbt(torch, card, rt, root, ref, asha_want) -> dict:
+    """The PBT part. -> its trials and checks."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import Checkpoint
+    from ray_tpu_torch.tune.tune_controller import TuneController
+
+    logs = os.path.join(root, "pbt_policy")
+    args = dict(perturbation_interval=TUNE["pbt_interval"],
+                hyperparam_mutations={"lr": list(TUNE["pbt_mutations"])},
+                seed=TUNE["pbt_seed"])
+    sched = recording_scheduler(tune.PopulationBasedTraining)(
+        policy_log_dir=logs, **args)
+    ctl = TuneController(
+        tune_trainable,
+        searcher=tune.BasicVariantGenerator(
+            {"lr": tune.grid_search(list(TUNE["pbt_lrs"])),
+             "budget": "iterations"}),
+        scheduler=sched, metric="loss", mode="min",
+        experiment_dir=os.path.join(root, "pbt"),
+        resources_per_trial={"CPU": 1, "GPU": 1})
+    t = time.perf_counter()
+    trials = ctl.run()
+    run_s = time.perf_counter() - t
+    grid = tune.ResultGrid(trials, "loss", "min")
+    if grid.errors:
+        raise AssertionError(f"tune[pbt]: errors {grid.errors}")
+    fresh = tune.PopulationBasedTraining(**args)
+    fresh.set_search_properties("loss", "min")
+    exploits = replay_decisions(fresh, sched.stream, "pbt")
+    policy = {}
+    for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+        with open(os.path.join(logs, name)) as f:
+            policy[name] = [json.loads(x) for x in f if x.strip()]
+    lines = [(f"pbt_policy_{s['trial_id']}.jsonl", json.dumps(
+        {"t": s["result"]["training_iteration"], "config": s["after"]},
+        sort_keys=True)) for s in sched.stream if s["decision"] == "EXPLOIT"]
+    if not exploits or sorted(lines) != sorted(
+            (n, json.dumps(x, sort_keys=True))
+            for n, xs in policy.items() for x in xs):
+        raise AssertionError(f"tune[pbt]: {exploits} exploits, policy log "
+                             f"{policy}, expected {lines}")
+    # every trial's losses: before its exploit the run of its lr from
+    # the seed-0 start (the ASHA part's reference where the lr is one of
+    # its), after it the donor's checkpoint trained on at the explored lr
+    want = {}
+    for tr in trials:
+        for a, reports in enumerate(attempts_of(tr)):
+            src = reports[0]["restored"]
+            lr = reports[0]["lr"]
+            if src is None:
+                base = asha_want.get(lr) or ref.run(
+                    lr, TUNE["pbt_iterations"])
+                want[(tr.trial_id, a)] = {s + 1: x for s, x in
+                                          enumerate(base)}
+            else:
+                state = Checkpoint(src).load_state(
+                    map_location=torch.device("cuda", 0))
+                first = state["step"]
+                got = ref.run(lr, len(reports), state)
+                del state
+                want[(tr.trial_id, a)] = {first + 1 + s: x
+                                          for s, x in enumerate(got)}
+    out = tune_trial_checks(trials, "pbt", lambda tr, a, m: want[
+        (tr.trial_id, a)][m["step"]])
+    no_overlap(card_intervals(trials), "pbt")
+    ex = [s for s in sched.stream if s["decision"] == "EXPLOIT"]
+    log(f"tune[pbt]: {len(trials)} trials in {run_s:.2f} s, {exploits} "
+        f"exploit(s): " + "; ".join(
+            f"trial {s['trial_id']} at iteration "
+            f"{s['result']['training_iteration']} (loss "
+            f"{s['result']['loss']:.6f}) took "
+            f"{os.path.relpath(s['restore_path'], root)} with lr "
+            f"{s['config']['lr']:g} -> {s['after']['lr']:g}" for s in ex)
+        + f", each equal to a fresh seeded PBT's replay and in the policy "
+        f"log; losses against in-process: largest difference "
+        f"{out['gap']:.3e} (tolerance {TRAINER_LOSS_TOL}), equal to the "
+        f"bit: {out['bitwise']}")
+    log_trials("pbt", trials, card)
+    out.update(trials=trials, run_s=run_s, exploits=exploits)
+    return out
+
+
+def tune_workflow(root) -> None:
+    """The workflow part: prepare -> score -> publish as the port's
+    tasks, ``score`` raising on its first run; ``resume`` completes the
+    DAG from the frontier (prepare not run again); ``get_output`` and
+    ``list_workflows`` read it; the storage is removed."""
+    import shutil
+
+    from ray_tpu_torch import workflow
+
+    storage = os.path.join(root, "workflows")
+    runs = os.path.join(root, "workflow_runs.txt")
+    flag = os.path.join(root, "fail_once")
+    open(flag, "w").close()
+
+    def mark(name):
+        with open(runs, "a") as f:
+            f.write(name + "\n")
+
+    @workflow.step
+    def prepare():
+        mark("prepare")
+        return list(range(8))
+
+    @workflow.step
+    def score(xs):
+        mark("score")
+        if os.path.exists(flag):
+            os.unlink(flag)
+            raise RuntimeError("transient failure")
+        return sum(x * x for x in xs)
+
+    @workflow.step
+    def publish(total):
+        mark("publish")
+        return {"total": total}
+
+    dag = publish.bind(score.bind(prepare.bind()))
+    t = time.perf_counter()
+    try:
+        workflow.run(dag, workflow_id="tune_report", storage=storage)
+        raise AssertionError("tune[workflow]: the first run did not fail")
+    except Exception as e:  # noqa: BLE001 — the step's error, re-raised
+        if "transient failure" not in str(e):
+            raise
+    listed_mid = workflow.list_workflows(storage)
+    out = workflow.resume(dag, workflow_id="tune_report", storage=storage)
+    seconds = time.perf_counter() - t
+    with open(runs) as f:
+        ran = f.read().split()
+    listed = workflow.list_workflows(storage)
+    got = workflow.get_output("tune_report", storage=storage)
+    log(f"tune[workflow]: run failed in score, resume -> {out}, "
+        f"get_output {got}, steps run {ran}, list_workflows before "
+        f"{listed_mid} and after {listed}; {seconds:.2f} s")
+    if (out != {"total": 140} or got != out
+            or ran != ["prepare", "score", "score", "publish"]
+            or listed_mid != [{"workflow_id": "tune_report",
+                               "status": "RUNNING"}]
+            or listed != [{"workflow_id": "tune_report",
+                           "status": "SUCCESSFUL"}]):
+        raise AssertionError("tune[workflow]: resume did not complete the "
+                             "DAG from its frontier")
+    shutil.rmtree(storage)
+
+
+def tune_phase(torch, card) -> dict:
+    """Search learning rates for Llama-125M through the port's Tune on
+    ``ray_tpu_torch.init(num_cpus=4, num_gpus=1)``: ``TuneController``
+    (the JAX ``Tuner`` has no resources parameter) over
+    ``tune_trainable`` with ``resources_per_trial={"CPU": 1, "GPU": 1}``,
+    read through ``ResultGrid``. ASHA over 3 learning rates with a trial
+    death (``max_failures=1``, resumed from its step-2 checkpoint); the
+    best checkpoint evaluated on 4 held-out batches by an ActorPool of
+    one num_gpus=1 actor; a seeded PBT pair whose second trial exploits
+    the first's checkpoint; a 3-step workflow that fails once and
+    resumes. Checks: every loss against this process's run of the same
+    lr and steps (after a restart from the checkpoint it read, after an
+    exploit from the donor's at the explored lr) within TRAINER_LOSS_TOL;
+    ASHA's decisions and PBT's (donor, restore path and explored config)
+    those of fresh schedulers fed the same results, and the exploit in
+    the policy log; one trial on the card at a time by their walls, every
+    one on cuda:0 under CUDA_VISIBLE_DEVICES "0"; B1-B3 12 a step in each
+    trial's process, B1 12 a forward in the evaluator; the pool's losses
+    those of the same checkpoint in this process. Prints each actor's
+    start by part, checkpoint bytes and save and read seconds, per trial
+    its steps, actor-seconds and the steps ASHA's stops saved, and the
+    phase's seconds against TUNE_BUDGET_S. -> the launches of the
+    trials' and the evaluator's processes."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="tune_phase_")
+    rt.init(num_cpus=4, num_gpus=1)
+    ref = None
+    try:
+        ref = TuneReference(torch)
+        asha = tune_asha(torch, card, rt, root, ref)
+        ev = tune_eval(torch, card, rt, asha["best"], ref)
+        shutil.rmtree(os.path.join(root, "asha"))
+        pbt = tune_pbt(torch, card, rt, root, ref, asha["want"])
+        no_overlap(card_intervals(asha["trials"]) + [ev["interval"]]
+                   + card_intervals(pbt["trials"]), "the phase")
+        shutil.rmtree(os.path.join(root, "pbt"))
+        ref.close()
+        ref = None
+        tune_workflow(root)
+    finally:
+        if ref is not None:
+            ref.close()
+        if rt.is_initialized():
+            rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    launches = {k: asha["launches"][k] + pbt["launches"][k]
+                + ev["launches"][k] for k in asha["launches"]}
+    steps = launches["flash_bwd_dq"] // 12
+    log(f"tune: launches in the trials' and the evaluator's processes "
+        f"{launches} ({steps} trial steps, 12 a step, and "
+        f"{TUNE['eval_batches']} forwards); ASHA {asha['run_s']:.2f} s, PBT "
+        f"{pbt['run_s']:.2f} s")
+    seconds = time.perf_counter() - t_phase
+    log(f"tune phase: {seconds:.1f} s (target {TUNE_BUDGET_S:.0f} s) on "
+        f"{card}")
+    return {"launches": launches, "seconds": seconds}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -5209,6 +5903,12 @@ def main() -> int:
     # iter_torch_batches; its counts reset in the worker just before its
     # loop and read from its reports
     train["llama_data"] = {"launches": data_phase(torch, card)["launches"]}
+
+    # the Tune path: Llama-125M learning-rate searches in num_gpus=1 trial
+    # actors (ASHA through a trial death, a PBT exploit) and an evaluation
+    # ActorPool; its counts reset in each trial's and the evaluator's
+    # process just before its loop and read from its reports
+    train["llama_tune"] = {"launches": tune_phase(torch, card)["launches"]}
 
     kernels = []
     paged = [(base + suffix, base) for base in ("paged_decode", "paged_prefill")

@@ -583,8 +583,11 @@ class CoreWorker:
         """Whether this process has initialized CUDA; the first time it is
         seen, the GPU slots in effect are recorded as its binding."""
         if self._cuda_devices is None:
-            torch = sys.modules.get("torch")
-            if torch is None or not torch.cuda.is_initialized():
+            # a thread of this process (an actor's, started by its
+            # __init__) may be importing torch right now: a module without
+            # its ``cuda`` yet has not initialized CUDA
+            cuda = getattr(sys.modules.get("torch"), "cuda", None)
+            if cuda is None or not cuda.is_initialized():
                 return False
             self._cuda_devices = ",".join(str(g) for g in self._current_gpus)
         return True

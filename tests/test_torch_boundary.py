@@ -94,6 +94,7 @@ def test_importing_the_ports_data_loads_no_arrow_or_pandas():
         "import sys\n"
         "import ray_tpu_torch.data, ray_tpu_torch.data.tfrecord\n"
         "import ray_tpu_torch.train, ray_tpu_torch.train.worker_group\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.workflow\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{ARROW + FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -122,6 +123,9 @@ def test_importing_the_port_loads_no_jax():
         "import ray_tpu_torch.train, ray_tpu_torch.train.torch\n"
         "import ray_tpu_torch.util.placement_group, ray_tpu_torch.util.state\n"
         "import ray_tpu_torch.data\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.tune.tune_controller\n"
+        "import ray_tpu_torch.workflow, ray_tpu_torch.util.actor_pool\n"
+        "import ray_tpu_torch.util.queue\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
